@@ -1,0 +1,456 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's serving decode (jpeglibrary_tpu_torch) on the card at
+the size users run: a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
+JPEGs through ``decode_stream_rgb(..., device="cuda")``. In order:
+
+1. environment: the card, its power limit, torch, CUDA, nvcc, triton;
+2. build: the CUDA kernels (nvcc, sm_90a) and the native scanner (g++);
+3. kernel: K1 against its plain PyTorch version at the main path's
+   shapes (65,536 and 16,384 blocks), max |diff| <= 1 on <= 1e-3 of the
+   samples, with both device times (CUDA events, median of runs in turns);
+4. slice: the images are synthesised (a numpy gradient plus noise per
+   seed) and encoded by the baseline encoder below; the stream decode is
+   held against the port's CPU path (<= 2 RGB levels on <= 1e-4 of the
+   values; the CPU tests hold that path to the JAX package) and against
+   the source image (PSNR), with K1 launched exactly 3 times per image;
+   then MP/s end to end (the median of warm runs, each bit-identical to
+   the first), and the host-clock times of the transform alone and of
+   the host scan alone.
+
+Any failure raises and the script exits non-zero. The line before the
+last is a JSON record of the kernels; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits
+non-zero before printing any result. Imports neither JAX nor PIL, and
+of this repo only the port, ``jpeglibrary_tpu_torch``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+K1_SOURCE = "jpeglibrary_tpu_torch/csrc/dequant_idct.cu"
+K1_REPLACES = "jpeglibrary_tpu/ops/pallas_kernels.py:57"
+KERNEL_BLOCKS = (65536, 16384)  # Y and each chroma plane of a 2048x2048 4:2:0 image
+LEVEL_SHIFTS = (128, 2048)
+N_IMAGES = 8
+SIZE = 2048
+TIMED_RUNS = 25
+STREAM_RUNS = 5  # warm stream runs after the first; host-clock times vary from run to run
+MIN_PSNR_DB = 22.0  # the decode against its source image; q75 and the noise give ~24.6 dB
+SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clocks
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def check(ok, what):
+    """Fail the run (a check that ``python -O`` keeps, unlike assert)."""
+    if not ok:
+        raise SystemExit(f"chip_smoke: check failed: {what}")
+
+
+def device_ms(*fns, runs=TIMED_RUNS, warmup=3):
+    """Median device milliseconds of each of ``fns``, timed in turns with
+    CUDA events, ``runs`` calls each. A spin kernel ahead of each start
+    event keeps the card busy while the host enqueues the call, so the
+    time excludes the host's launch cost (an idle card would wait for it
+    between the events)."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(runs):
+        for fn, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [statistics.median(ts) for ts in times]
+
+
+def wall_ms(fn, runs=TIMED_RUNS, warmup=3):
+    """Median host-clock milliseconds of ``fn`` followed by a synchronise:
+    what a caller waits, launch costs included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def phase_environment():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    log(smi)  # card name, power limit
+    from jpeglibrary_tpu_torch.ops import _build
+
+    nvcc = _build.find_nvcc()
+    nvcc_version = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[-1]
+    try:
+        import triton
+
+        triton_state = f"imports, {triton.__version__}"
+    except ImportError as exc:
+        triton_state = f"does not import ({exc})"
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"torch.version.cuda {torch.version.cuda}")
+    log(f"nvcc {nvcc}: {nvcc_version}")
+    log(f"triton {triton_state}")
+    log(f"device 0: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    # The plain K1 version runs a float32 matmul; TF32 would break its
+    # 1-LSB contract, and the plain version raises while it is allowed.
+    # PyTorch's default is already off; set it explicitly.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+
+
+def phase_build():
+    from jpeglibrary_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    so = _build.build_library()
+    _build.load_library()
+    t1 = time.perf_counter()
+    _build.load_scanner()
+    t2 = time.perf_counter()
+    log(f"build: CUDA kernels {t1 - t0:.3f} s ({so.name}), native scanner {t2 - t1:.3f} s")
+    ptxas = [ln for ln in so.with_suffix(".log").read_text().splitlines() if "ptxas" in ln]
+    for ln in ptxas:
+        log(f"  {ln.strip()}")
+
+
+def phase_kernel(dev):
+    """K1 against its plain version on the card; returns the record."""
+    from jpeglibrary_tpu_torch.ops import decode_stage, kernels
+
+    matrix = kernels.transform_matrix(dev)
+    rng = np.random.default_rng(1234)
+    worst = 0
+    timing = {}
+    for n in KERNEL_BLOCKS:
+        coeffs16 = torch.from_numpy(
+            rng.integers(-1024, 1024, size=(n, 64)).astype(np.int16)).to(dev)
+        coeffs = coeffs16.to(torch.int32)  # what the densify hands K1
+        quant = torch.from_numpy(rng.integers(1, 256, size=64).astype(np.int32)).to(dev)
+        for ls in LEVEL_SHIFTS:
+            for c in (coeffs, coeffs16):
+                got = kernels.dequantize_idct_shift(c, quant, ls)
+                want = decode_stage.dequantize_idct_shift(c, quant, ls, matrix)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape == (n, 8, 8) and got.dtype == torch.int32,
+                      (tuple(got.shape), got.dtype))
+                diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+                max_abs = int(diff.max())
+                share = float((diff > 0).double().mean())
+                log(f"kernel: K1 vs plain, {n} blocks, {c.dtype}, level_shift {ls}: "
+                    f"max |diff| {max_abs}, differing share {share:.3e}")
+                check(max_abs <= 1 and share <= 1e-3, (n, c.dtype, ls, max_abs, share))
+                worst = max(worst, max_abs)
+        p_ms, k_ms = device_ms(
+            lambda: decode_stage.dequantize_idct_shift(coeffs, quant, 128, matrix),
+            lambda: kernels.dequantize_idct_shift(coeffs, quant, 128),
+        )
+        timing[n] = (k_ms, p_ms)
+        gbs = n * 64 * 8 / (k_ms * 1e-3) / 1e9
+        log(f"kernel: {n} blocks int32: K1 {k_ms:.6f} ms ({gbs:.1f} GB/s of 8 B per sample), "
+            f"plain {p_ms:.6f} ms (device time, median of {TIMED_RUNS} in turns)")
+    k_ms, p_ms = timing[KERNEL_BLOCKS[0]]
+    return {"name": "dequantize_idct_shift", "route": "cuda", "source": K1_SOURCE,
+            "replaces": K1_REPLACES, "launches": None, "max_abs_err": worst,
+            "ms": k_ms, "plain_ms": p_ms}
+
+
+def synth_image(seed, size):
+    """A smooth colour gradient plus Gaussian noise, one seed per image."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    base = np.stack(
+        [255 * xx / size, 255 * yy / size, 127.5 + 100 * np.sin(xx / 97 + yy / 61 + seed)], -1
+    )
+    return np.clip(base + rng.normal(0, 16, (size, size, 3)), 0, 255).astype(np.uint8)
+
+
+# --- The synthetic inputs: a baseline 4:2:0 JPEG encoder in numpy ---------
+# ITU-T T.81 Annex K: quantisation tables K.1 and K.2 (natural order), IJG
+# quality scaling, and Huffman tables K.3-K.6. The AC tables' 16-bit codes
+# take the symbols left over in ascending order, as the standard lists them.
+
+LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+CHROMA_Q = np.full(64, 99)
+CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
+    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+AC_SYMBOLS = [0x00, 0xF0] + [run << 4 | size for run in range(16) for size in range(1, 11)]
+
+
+def ac_symbols(head):
+    """An AC table's symbols: those with codes shorter than 16 bits, then the rest."""
+    return head + sorted(set(AC_SYMBOLS) - set(head))
+
+
+HUFFMAN = {  # (class, table id): (code counts by length 1..16, symbols in code order)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], ac_symbols([
+        0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13,
+        0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23, 0x42,
+        0xB1, 0xC1, 0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82])),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], ac_symbols([
+        0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51,
+        0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1,
+        0xC1, 0x09, 0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24,
+        0x34, 0xE1, 0x25, 0xF1])),
+}
+# ZIGZAG[k] is the natural (row * 8 + column) index of zig-zag position k.
+ZIGZAG = np.array(sorted(range(64), key=lambda p: (
+    p // 8 + p % 8, p // 8 if (p // 8 + p % 8) % 2 else p % 8)))
+_u = np.arange(8)[:, None]
+DCT = np.sqrt(np.where(_u == 0, 1 / 8, 2 / 8)) * np.cos(
+    (2 * np.arange(8)[None, :] + 1) * _u * np.pi / 16)  # orthonormal DCT-II
+
+
+def huffman_codes(counts, symbols):
+    """Canonical codes: (code, length) arrays indexed by symbol."""
+    check(sum(counts) == len(symbols) == len(set(symbols)), "malformed Huffman table")
+    code, length = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    next_code, k = 0, 0
+    for n_bits, count in enumerate(counts, 1):
+        for _ in range(count):
+            code[symbols[k]], length[symbols[k]] = next_code, n_bits
+            next_code, k = next_code + 1, k + 1
+        next_code <<= 1
+    return code, length
+
+
+def magnitude_bits(v):
+    """The size category of each value and its amplitude bits (T.81 F.1.2.1)."""
+    size = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+    return size, np.where(v >= 0, v, v + (np.int64(1) << size) - 1)
+
+
+def pack_bits(values, lengths):
+    """Concatenate the codes MSB first, pad with 1 bits, stuff 0x00 after 0xFF."""
+    item = np.repeat(np.arange(len(values)), lengths)
+    last_bit = np.cumsum(lengths) - 1
+    bits = (values[item] >> (last_bit[item] - np.arange(len(item)))) & 1
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.int64)]).astype(np.uint8)
+    out = np.packbits(bits)
+    return np.insert(out, np.nonzero(out == 0xFF)[0] + 1, 0).tobytes()
+
+
+def quantised_planes(rgb, quality):
+    """The Y, Cb and Cr planes of quantised zig-zag blocks ([Hb, Wb, 64]
+    each) of an ``[H, W, 3]`` uint8 image whose sides are multiples of
+    16, and the two quant tables (natural order): JFIF YCbCr, 2x2 mean
+    chroma subsampling, float DCT, Annex K tables at IJG ``quality``."""
+    h, w, _ = rgb.shape
+    check(h % 16 == 0 and w % 16 == 0, f"{h}x{w} is not a multiple of 16")
+    r, g, b = np.moveaxis(rgb.astype(np.float64), -1, 0)
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+    cb, cr = (c.reshape(h // 2, 2, w // 2, 2).mean((1, 3)) for c in (cb, cr))
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    quants = [np.clip((q * scale + 50) // 100, 1, 255) for q in (LUMA_Q, CHROMA_Q)]
+
+    def blocks(plane, quant):
+        hb, wb = plane.shape[0] // 8, plane.shape[1] // 8
+        tiles = (plane - 128).reshape(hb, 8, wb, 8).transpose(0, 2, 1, 3)
+        coef = np.einsum("ux,hwxy,vy->hwuv", DCT, tiles, DCT).reshape(hb, wb, 64)
+        return np.rint(coef / quant).astype(np.int64)[..., ZIGZAG]
+
+    return [blocks(y, quants[0]), blocks(cb, quants[1]), blocks(cr, quants[1])], quants
+
+
+def encode_420(rgb, quality=75):
+    """Baseline sequential JPEG, 4:2:0, of :func:`quantised_planes`."""
+    h, w, _ = rgb.shape
+    (y, cb, cr), quants = quantised_planes(rgb, quality)
+    mh, mw = h // 16, w // 16
+    mcus = np.concatenate([
+        y.reshape(mh, 2, mw, 2, 64).transpose(0, 2, 1, 3, 4).reshape(mh * mw, 4, 64),
+        cb.reshape(mh * mw, 1, 64),
+        cr.reshape(mh * mw, 1, 64),
+    ], 1).reshape(-1, 64)
+    comp = np.tile([0, 0, 0, 0, 1, 2], mh * mw)
+    table = np.minimum(comp, 1)
+    codes = {key: huffman_codes(*spec) for key, spec in HUFFMAN.items()}
+    dc_code, dc_len = (np.stack([codes[0, t][i] for t in (0, 1)]) for i in (0, 1))
+    ac_code, ac_len = (np.stack([codes[1, t][i] for t in (0, 1)]) for i in (0, 1))
+
+    # DC: the difference from the previous block of the same component.
+    n = len(mcus)
+    diff = np.empty(n, np.int64)
+    for c in range(3):
+        diff[comp == c] = np.diff(mcus[comp == c, 0], prepend=0)
+    size, amp = magnitude_bits(diff)
+    parts = [(np.arange(n) * 65, (dc_code[table, size] << size) | amp,
+              dc_len[table, size] + size)]
+
+    # AC: a (run, size) symbol per non-zero coefficient, each after one
+    # ZRL per 16 zeros of its run; EOB where the block's tail is zero.
+    blk, k = np.nonzero(mcus[:, 1:])
+    zz = k + 1
+    first_in_block = np.r_[True, blk[1:] != blk[:-1]]
+    run = zz - np.where(first_in_block, 0, np.r_[0, zz[:-1]]) - 1
+    size, amp = magnitude_bits(mcus[blk, zz])
+    t = table[blk]
+    sym = (run & 15) << 4 | size
+    sym_code = (ac_code[t, sym] << size) | amp
+    sym_len = ac_len[t, sym] + size
+    reps = (run >> 4) + 1
+    src = np.repeat(np.arange(len(zz)), reps)
+    is_sym = np.arange(len(src)) - np.repeat(np.cumsum(reps) - reps, reps) == reps[src] - 1
+    parts.append((blk[src] * 65 + zz[src],
+                  np.where(is_sym, sym_code[src], ac_code[t[src], 0xF0]),
+                  np.where(is_sym, sym_len[src], ac_len[t[src], 0xF0])))
+    last = np.zeros(n, np.int64)
+    block_end = np.r_[first_in_block[1:], True]
+    last[blk[block_end]] = zz[block_end]
+    eob = np.nonzero(last < 63)[0]
+    parts.append((eob * 65 + 64, ac_code[table[eob], 0x00], ac_len[table[eob], 0x00]))
+
+    keys, values, lengths = (np.concatenate(p) for p in zip(*parts))
+    order = np.argsort(keys, kind="stable")
+    scan_data = pack_bits(values[order], lengths[order])
+
+    def segment(marker, payload):
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
+
+    return b"".join([
+        b"\xff\xd8",
+        segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"),
+        segment(0xDB, b"".join(bytes([i]) + q[ZIGZAG].astype(np.uint8).tobytes()
+                               for i, q in enumerate(quants))),
+        segment(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])),
+        segment(0xC4, b"".join(bytes([cls << 4 | tid]) + bytes(counts) + bytes(symbols)
+                               for (cls, tid), (counts, symbols) in HUFFMAN.items())),
+        segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])),
+        scan_data,
+        b"\xff\xd9",
+    ])
+
+
+def psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 10 * np.log10(255.0 ** 2 / mse)
+
+
+def phase_slice(record, dev):
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.ops import kernels
+    from jpeglibrary_tpu_torch.parallel.batch import scan
+
+    t0 = time.perf_counter()
+    sources = [synth_image(seed, SIZE) for seed in range(N_IMAGES)]
+    datas = [encode_420(rgb, 75) for rgb in sources]
+    t1 = time.perf_counter()
+    # The golden is the port's CPU path (plain PyTorch versions of the
+    # kernels), which the CPU tests hold to the JAX package's host decode.
+    goldens = [jtt.to_rgb8_device(scan(d), device="cpu").numpy() for d in datas]
+    t2 = time.perf_counter()
+    log(f"slice: {N_IMAGES} images {SIZE}x{SIZE} q75 4:2:0, "
+        f"{sum(map(len, datas))} JPEG bytes; encode {t1 - t0:.3f} s, "
+        f"CPU golden decode {t2 - t1:.3f} s")
+    mp = N_IMAGES * SIZE * SIZE / 1e6
+
+    def run():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        outs = list(jtt.decode_stream_rgb(datas, device=dev))
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - start
+
+    kernels.dequantize_idct_shift.launches = 0
+    outs, secs = run()
+    launches = kernels.dequantize_idct_shift.launches
+    log(f"slice: stream run 1 {secs:.6f} s, {mp / secs:.3f} MP/s end to end; "
+        f"K1 launches {launches}")
+    check(launches == 3 * N_IMAGES, f"K1 launches {launches}")
+    record["launches"] = launches
+
+    for i, (out, gold) in enumerate(zip(outs, goldens)):
+        check(out.device.type == dev.type and out.dtype == torch.uint8, (out.device, out.dtype))
+        check(tuple(out.shape) == (3, SIZE, SIZE), tuple(out.shape))
+        got = out.cpu().numpy()
+        d = np.abs(got.astype(np.int16) - gold.astype(np.int16))
+        n_diff = int((d > 0).sum())
+        fidelity = psnr(got, np.moveaxis(sources[i], -1, 0))
+        log(f"slice: image {i}: max |diff| vs CPU golden {int(d.max())}, "
+            f"{n_diff}/{d.size} values differ; PSNR vs the source {fidelity:.2f} dB")
+        check(d.max() <= 2 and n_diff <= d.size * 1e-4, (i, int(d.max()), n_diff))
+        check(fidelity >= MIN_PSNR_DB, (i, fidelity))
+
+    warm = []
+    for _ in range(STREAM_RUNS):
+        outs2, secs2 = run()
+        check(all(torch.equal(a, b) for a, b in zip(outs, outs2)), "a later run differs")
+        warm.append(secs2)
+    med = statistics.median(warm)
+    log(f"slice: stream runs 2-{STREAM_RUNS + 1}: median {med:.6f} s, {mp / med:.3f} MP/s "
+        f"end to end (runs: {', '.join(f'{s:.6f}' for s in warm)} s); "
+        "each bit-identical to run 1")
+
+    res = scan(datas[0])
+    payload, quants = jtt.device_inputs(res, dev)
+    t_ms = wall_ms(lambda: jtt.transform_mcu2(payload, quants, res.geometry, dev))
+    log(f"slice: transform alone (payload on the device) {t_ms:.6f} ms host clock "
+        f"to synchronised result (median of {TIMED_RUNS}), "
+        f"{SIZE * SIZE / 1e6 / (t_ms * 1e-3):.3f} MP/s")
+
+    scan_s = []
+    for d in datas:
+        start = time.perf_counter()
+        scan(d)
+        scan_s.append(time.perf_counter() - start)
+    med = statistics.median(scan_s)
+    log(f"slice: host scan alone {med * 1e3:.6f} ms per image (median of {N_IMAGES}), "
+        f"{SIZE * SIZE / 1e6 / med:.3f} MP/s, one image at a time")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        sys.exit(2)
+    phase_environment()
+    phase_build()
+    dev = torch.device("cuda")
+    record = phase_kernel(dev)
+    phase_slice(record, dev)
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,106 @@
+"""On-first-use nvcc build of the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file compiles into one shared library with a plain C
+interface, cached by a hash of the sources and flags under the package's
+``_build`` directory, and is loaded with
+ctypes, the way ``jpeglibrary_tpu.native.build`` builds the scanner.
+Nothing here runs at import: the library is built by the first kernel
+launch, or by calling :func:`load_library`. A missing ``nvcc`` or a
+failed compile raises with the command line; there is no fallback.
+:func:`load_scanner` builds the host layers' native scanner the same way.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills into the build log
+)
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """nvcc from ``CUDA_HOME``, then ``PATH``, then /usr/local/cuda."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def build_library() -> pathlib.Path:
+    """Compile the kernels if needed and return the library's path.
+
+    The compiler's output (ptxas register and shared-memory report) is
+    kept beside the library with the suffix ``.log``."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = _PKG / "_build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so_path = out_dir / f"libjpxcuda-{h.hexdigest()[:16]}.so"
+    if so_path.exists():
+        return so_path
+    tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    so_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def load_scanner() -> ctypes.CDLL:
+    """Build (once per source hash, with g++) and load the native entropy
+    scanner of the reused host layers; raises if it cannot be built, so
+    no image falls back to the Python scanner."""
+    from jpeglibrary_tpu.native import build as native_build
+
+    return native_build.load_library()
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name in ("jpx_dequant_idct_i32", "jpx_dequant_idct_i16"):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p,  # coeffs, quant
+                    ctypes.c_void_p, ctypes.c_void_p,  # matrix, out
+                    ctypes.c_int64, ctypes.c_int,      # n_blocks, level_shift
+                    ctypes.c_void_p,                   # cudaStream_t
+                ]
+            _LIB = lib
+        return _LIB

@@ -1,0 +1,78 @@
+"""Decode transform stage in PyTorch: zig-zag coefficient blocks ->
+sample planes -> 8-bit output.
+
+Port of ``jpeglibrary_tpu/ops/decode_stage.py`` (the parts the serving
+decode runs). The integer ops are bit-exact against the numpy originals;
+:func:`dequantize_idct_shift` is the plain PyTorch version of the K1
+kernel (``ops/kernels.py``) and, like the Pallas kernel it mirrors, is
+within 1 sample LSB of the butterfly IDCT.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dequantize_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
+                          level_shift: int, matrix: torch.Tensor) -> torch.Tensor:
+    """[..., 64] zig-zag coefficients + [64] zig-zag quant -> int32
+    samples [..., 8, 8].
+
+    ``matrix`` is the [64, 64] fp32 folded un-zigzag + IDCT map
+    (``kernels.fused_transform_matrix``). The int32 product converts to
+    fp32 with one rounding, as ``fl(c) * fl(q)`` does in the kernels;
+    rounding is half to even (``torch.round``). On a CUDA tensor it
+    raises while TF32 matmuls are allowed: TF32 keeps a 10-bit mantissa
+    and breaks the 1-LSB contract, and the process-wide setting is the
+    caller's to change."""
+    if coeffs_zz.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the plain K1 version needs full fp32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+    deq = (coeffs_zz.to(torch.int32) * quant_zz.to(torch.int32)).to(torch.float32)
+    pixels = deq.reshape(-1, 64) @ matrix
+    samples = torch.round(pixels).to(torch.int32) + level_shift
+    return samples.reshape(coeffs_zz.shape[:-1] + (8, 8))
+
+
+def blocks_to_plane(samples: torch.Tensor) -> torch.Tensor:
+    """[Hb, Wb, 8, 8] -> [Hb*8, Wb*8]."""
+    hb, wb = samples.shape[0], samples.shape[1]
+    return samples.permute(0, 2, 1, 3).reshape(hb * 8, wb * 8)
+
+
+def upsample_duplicate(plane: torch.Tensor, hs: int, vs: int) -> torch.Tensor:
+    """Nearest-neighbour duplication upsample (each sample repeated
+    ``vs`` times down and ``hs`` times across)."""
+    if vs != 1:
+        plane = plane.repeat_interleave(vs, dim=0)
+    if hs != 1:
+        plane = plane.repeat_interleave(hs, dim=1)
+    return plane
+
+
+def clamp_to_uint8(plane: torch.Tensor) -> torch.Tensor:
+    """8-bit writer: clamp to [0, 255]."""
+    return plane.clamp(0, 255).to(torch.uint8)
+
+
+def normalize_to_uint8(plane: torch.Tensor, precision: int) -> torch.Tensor:
+    """Precision-aware 8-bit output: 8-bit clamps; >8-bit shifts right by
+    p-8, then clamps; <8-bit clamps to [0, 2^p - 1], then bit-expands to
+    8 bits. ``plane`` is int32."""
+    if precision == 8:
+        return clamp_to_uint8(plane)
+    if precision > 8:
+        return (plane >> (precision - 8)).clamp(0, 255).to(torch.uint8)
+    bits = plane.clamp(0, (1 << precision) - 1)
+    current = precision
+    while current < 8:
+        bits = (bits << precision) | bits
+        current += precision
+    if current > 8:
+        bits = bits >> precision
+        current -= precision
+        remaining = 8 - current
+        bits = (bits << remaining) | (bits & ((1 << remaining) - 1))
+    return bits.to(torch.uint8)

@@ -1,0 +1,89 @@
+"""K1, the decode transform kernel: dequantize + un-zigzag + 2-D IDCT +
+round + level shift over a batch of 8x8 blocks.
+
+Port of the decode half of ``jpeglibrary_tpu/ops/pallas_kernels.py``.
+The whole transform is linear up to the rounding, so it is one product
+with a folded [64, 64] matrix per block:
+
+    samples[t, :] = rint( fl(coeff[t, :] * quant[:]) @ K ) + level_shift
+    K[zz, 8*i+j]  = 0.125 * M[i, r(zz)] * M[j, c(zz)]
+
+where M is the 1-D AAN IDCT butterfly written as a matrix and (r, c) the
+natural position of zig-zag index zz.
+
+:func:`dequantize_idct_shift` launches the hand-written CUDA kernel
+(``csrc/dequant_idct.cu``) for a CUDA tensor, and takes the plain
+PyTorch version (``decode_stage.dequantize_idct_shift``) only for a CPU
+tensor. The Pallas wrapper padded to a 1024-block tile; the CUDA kernel
+masks its ragged edge and nothing is padded.
+"""
+
+from __future__ import annotations
+
+import functools
+import threading
+
+import torch
+
+# The folded matrix is built with numpy; that module imports jax only
+# inside its Pallas functions, never at import.
+from jpeglibrary_tpu.ops.pallas_kernels import fused_transform_matrix
+
+from . import _build, decode_stage
+
+
+@functools.lru_cache(maxsize=16)
+def transform_matrix(device: torch.device) -> torch.Tensor:
+    """The folded matrix as a tensor on ``device`` (one copy per device)."""
+    return torch.from_numpy(fused_transform_matrix()).to(device)
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def dequantize_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
+                          level_shift: int) -> torch.Tensor:
+    """[..., 64] zig-zag int32 (or int16) coefficients + [64] int32
+    zig-zag quant -> int32 samples [..., 8, 8].
+
+    ``dequantize_idct_shift.launches`` counts the CUDA kernel's launches."""
+    if coeffs_zz.dtype not in (torch.int32, torch.int16):
+        raise TypeError(f"coefficients must be int32 or int16, got {coeffs_zz.dtype}")
+    if coeffs_zz.dim() < 1 or coeffs_zz.shape[-1] != 64:
+        raise ValueError(f"coefficients must be [..., 64], got {tuple(coeffs_zz.shape)}")
+    if quant_zz.dtype != torch.int32 or tuple(quant_zz.shape) != (64,):
+        raise ValueError(
+            f"quant must be int32 [64], got {quant_zz.dtype} {tuple(quant_zz.shape)}"
+        )
+    if quant_zz.device != coeffs_zz.device:
+        raise ValueError(
+            f"quant on {quant_zz.device}, coefficients on {coeffs_zz.device}"
+        )
+    device = coeffs_zz.device
+    matrix = transform_matrix(device)
+    if device.type == "cpu":
+        return decode_stage.dequantize_idct_shift(coeffs_zz, quant_zz, level_shift, matrix)
+    if device.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {device}")
+    if not (coeffs_zz.is_contiguous() and quant_zz.is_contiguous()):
+        raise ValueError("coefficients and quant must be contiguous")
+
+    out = torch.empty(coeffs_zz.shape[:-1] + (8, 8), dtype=torch.int32, device=device)
+    n_blocks = out.numel() // 64
+    if n_blocks == 0:
+        return out
+    lib = _build.load_library()
+    fn = lib.jpx_dequant_idct_i32 if coeffs_zz.dtype == torch.int32 else lib.jpx_dequant_idct_i16
+    with torch.cuda.device(device):
+        err = fn(
+            coeffs_zz.data_ptr(), quant_zz.data_ptr(), matrix.data_ptr(), out.data_ptr(),
+            n_blocks, int(level_shift), torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        dequantize_idct_shift.launches += 1
+    return out
+
+
+dequantize_idct_shift.launches = 0

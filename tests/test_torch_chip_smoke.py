@@ -1,0 +1,81 @@
+"""PyTorch port, the card check's CPU side: the baseline encoder in
+chip_smoke.py writes streams that the JAX package's host decoder reads
+back to the very coefficients it quantised, with the JAX package's own
+quant tables; the port's CPU path (chip_smoke.py's golden) decodes them
+within the device contract of the host golden; and without a CUDA
+device the script exits non-zero and prints no result."""
+
+import importlib.util
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jpeglibrary_tpu as jt
+import jpeglibrary_tpu_torch as jtt
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _longest_zero_run(planes):
+    """The longest run of zero AC coefficients ahead of a non-zero one."""
+    longest = 0
+    for blk in np.concatenate([p.reshape(-1, 64) for p in planes]):
+        positions = np.r_[0, np.flatnonzero(blk[1:]) + 1]
+        if len(positions) > 1:
+            longest = max(longest, int(np.diff(positions).max()) - 1)
+    return longest
+
+
+# Quality 20 leaves zero runs of 16 and more (ZRL symbols); quality 100
+# fills blocks to their last coefficient (no EOB) with 11-bit DC steps.
+@pytest.mark.parametrize("quality", [20, 75, 100])
+def test_encoder_round_trips_through_host_decoder(smoke, quality):
+    rgb = smoke.synth_image(quality, 112)
+    planes, quants = smoke.quantised_planes(rgb, quality)
+    if quality == 20:
+        assert _longest_zero_run(planes) >= 16
+    if quality == 100:
+        assert (planes[0][..., 63] != 0).any()
+    res = jt.decode(smoke.encode_420(rgb, quality), sparse_direct=True)
+    assert res.packed_mcu2 is not None
+    comps = res.geometry.components
+    assert [(c.h, c.v) for c in comps] == [(2, 2), (1, 1), (1, 1)]
+    for c, plane in zip(comps, planes):
+        np.testing.assert_array_equal(res.coefficients[c.component_index], plane)
+    ref = jt.decode(jt.encode_rgb(rgb, quality, subsampling="420"))
+    for c, quant in zip(comps, (quants[0], quants[1], quants[1])):
+        np.testing.assert_array_equal(res.quant[c.component_index], quant[smoke.ZIGZAG])
+        np.testing.assert_array_equal(res.quant[c.component_index],
+                                      ref.quant[c.component_index])
+
+
+def test_cpu_golden_matches_host_decode(smoke):
+    rgb = smoke.synth_image(3, 256)
+    res = jt.decode(smoke.encode_420(rgb, 75), sparse_direct=True)
+    got = jtt.to_rgb8_device(res, device="cpu").numpy()
+    want = np.moveaxis(res.to_rgb8(), -1, 0)
+    d = np.abs(got.astype(np.int64) - want)
+    assert d.max() <= 2 and (d > 0).sum() <= d.size * 1e-4, (d.max(), (d > 0).sum())
+    assert smoke.psnr(got, np.moveaxis(rgb, -1, 0)) >= smoke.MIN_PSNR_DB
+
+
+def test_exits_nonzero_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout

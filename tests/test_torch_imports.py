@@ -1,0 +1,65 @@
+"""PyTorch port, import hygiene: the port runs without JAX (the machine
+with the GPU has neither JAX nor PIL) and hands its product to no
+library kernel."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "jpeglibrary_tpu_torch"
+
+
+def test_cpu_slice_loads_neither_jax_nor_pil():
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import jpeglibrary_tpu as jt\n"
+        "import jpeglibrary_tpu_torch as jtt\n"
+        "rng = np.random.default_rng(0)\n"
+        "rgb = np.clip(np.linspace(0, 255, 64)[None, :, None]\n"
+        "              + rng.normal(0, 30, (48, 64, 3)), 0, 255).astype(np.uint8)\n"
+        "data = jt.encode_rgb(rgb, 75)\n"
+        "out = list(jtt.decode_stream_rgb([data, data], device='cpu'))\n"
+        "assert [tuple(o.shape) for o in out] == [(3, 48, 64)] * 2\n"
+        "print(sorted(m for m in ('jax', 'jaxlib', 'PIL') if m in sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "[]"
+
+
+def test_chip_smoke_imports_only_the_port():
+    """The card check reaches the repo only through the port: no JAX, no
+    PIL and nothing of the JAX package by import of its own."""
+    lines = (ROOT / "chip_smoke.py").read_text().splitlines()
+    imports = [ln.strip() for ln in lines if re.match(r"\s*(import|from)\s", ln)]
+    assert any("jpeglibrary_tpu_torch" in ln for ln in imports)
+    hits = [ln for ln in imports
+            if re.match(r"(import|from)\s+(jax|jaxlib|PIL|jpeglibrary_tpu)\b", ln)]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("pattern", [
+    r"^\s*(import\s+jax|from\s+jax[\s.])",
+    r"torch\.compile",
+    r"scaled_dot_product_attention",
+])
+def test_port_sources_free_of(pattern):
+    sources = sorted(PORT.rglob("*.py")) + sorted((PORT / "csrc").glob("*.cu"))
+    assert sources
+    hits = [
+        f"{p.relative_to(ROOT)}:{i}"
+        for p in sources
+        for i, line in enumerate(p.read_text().splitlines(), 1)
+        if re.search(pattern, line)
+    ]
+    assert not hits, hits
