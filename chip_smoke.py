@@ -2,23 +2,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving decode (jpeglibrary_tpu_torch) on the card at
-the size users run: a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
-JPEGs through ``decode_stream_rgb(..., device="cuda")``. In order:
+Drives the port's two main paths on the card at the size users run: the
+serving decode, a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
+JPEGs through ``decode_stream_rgb(..., device="cuda")``, and the device
+encode, the same 8 images through ``encode_rgb(..., device="cuda")``.
+In order:
 
 1. environment: the card, its power limit, torch, CUDA, nvcc, triton;
 2. build: the CUDA kernels (nvcc, sm_90a) and the native scanner (g++);
-3. kernel: K1 against its plain PyTorch version at the main path's
-   shapes (65,536 and 16,384 blocks), max |diff| <= 1 on <= 1e-3 of the
-   samples, with both device times (CUDA events, median of runs in turns);
-4. slice: the images are synthesised (a numpy gradient plus noise per
-   seed) and encoded by the baseline encoder below; the stream decode is
-   held against the port's CPU path (<= 2 RGB levels on <= 1e-4 of the
-   values; the CPU tests hold that path to the JAX package) and against
-   the source image (PSNR), with K1 launched exactly 3 times per image;
-   then MP/s end to end (the median of warm runs, each bit-identical to
-   the first), and the host-clock times of the transform alone and of
-   the host scan alone.
+3. kernels, each against its plain PyTorch version at the main paths'
+   shapes (65,536 and 16,384 blocks: the Y plane and each chroma plane of
+   a 2048x2048 4:2:0 image), at level shifts 128 and 2048, max |diff|
+   <= 1 on <= 1e-3 of the values, with both device times (CUDA events,
+   median of runs in turns):
+   K1 (dequantize + IDCT) from int32 and int16 coefficients;
+   K2 (FDCT + quantize) from int32 and uint8 sample planes, plus exact
+   .5 ties (constant blocks, q = 16) that must round half to even;
+4. decode slice: the images are synthesised (a numpy gradient plus noise
+   per seed) and encoded by the baseline encoder below; the stream
+   decode is held against the port's CPU path (<= 2 RGB levels on <= 1e-4
+   of the values; the CPU tests hold that path to the JAX package) and
+   against the source image (PSNR), with K1 launched exactly 3 times per
+   image; then MP/s end to end (the median of warm runs, each
+   bit-identical to the first), and the host-clock times of the
+   transform alone and of the host scan alone;
+5. encode slice: the same images through ``encode_rgb`` at q75 4:2:0,
+   and one more with ``optimize_coding=True``, with K2 launched exactly 3
+   times per image; the card's coefficient planes within 1 of the port's
+   CPU path on <= 1e-3 of the values, and the bytes equal to the CPU
+   path's wherever the planes are; the same bytes on a second run; the
+   JPEGs decoded on the card by ``decode_stream_rgb`` at PSNR >= 22 dB
+   against the source; then where an image's encode time goes (host
+   colour conversion, upload, device stage, download, host emission) and
+   the median per image end to end.
 
 Any failure raises and the script exits non-zero. The line before the
 last is a JSON record of the kernels; the last line is
@@ -40,6 +56,8 @@ import torch
 
 K1_SOURCE = "jpeglibrary_tpu_torch/csrc/dequant_idct.cu"
 K1_REPLACES = "jpeglibrary_tpu/ops/pallas_kernels.py:57"
+K2_SOURCE = "jpeglibrary_tpu_torch/csrc/fdct_quant.cu"
+K2_REPLACES = "jpeglibrary_tpu/ops/pallas_kernels.py:99"
 KERNEL_BLOCKS = (65536, 16384)  # Y and each chroma plane of a 2048x2048 4:2:0 image
 LEVEL_SHIFTS = (128, 2048)
 N_IMAGES = 8
@@ -182,6 +200,65 @@ def phase_kernel(dev):
     k_ms, p_ms = timing[KERNEL_BLOCKS[0]]
     return {"name": "dequantize_idct_shift", "route": "cuda", "source": K1_SOURCE,
             "replaces": K1_REPLACES, "launches": None, "max_abs_err": worst,
+            "ms": k_ms, "plain_ms": p_ms}
+
+
+def phase_kernel_fdct(dev):
+    """K2 against its plain version on the card; returns the record."""
+    from jpeglibrary_tpu_torch.ops import encode_stage, kernels
+
+    matrix = kernels.fdct_matrix(dev)
+    rng = np.random.default_rng(4321)
+    worst = 0
+    timing = {}
+    for n in KERNEL_BLOCKS:
+        side = 8 * int(np.sqrt(n))  # a square plane of n blocks
+        quant = torch.from_numpy(rng.integers(1, 256, size=64).astype(np.int32)).to(dev)
+        u8 = torch.from_numpy(rng.integers(0, 256, size=(side, side)).astype(np.uint8)).to(dev)
+        for ls in LEVEL_SHIFTS:
+            i32 = torch.from_numpy(
+                rng.integers(0, 2 * ls, size=(side, side)).astype(np.int32)).to(dev)
+            for p in (i32, u8):
+                got = kernels.fdct_quantize(p, quant, ls)
+                want = encode_stage.fdct_quantize(p, quant, ls, matrix)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape == (side // 8, side // 8, 64)
+                      and got.dtype == torch.int16, (tuple(got.shape), got.dtype))
+                diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+                max_abs = int(diff.max())
+                share = float((diff > 0).double().mean())
+                log(f"kernel: K2 vs plain, {n} blocks, {p.dtype}, level_shift {ls}: "
+                    f"max |diff| {max_abs}, differing share {share:.3e}")
+                check(max_abs <= 1 and share <= 1e-3, (n, p.dtype, ls, max_abs, share))
+                worst = max(worst, max_abs)
+        p_ms, k_ms, u_ms = device_ms(
+            lambda: encode_stage.fdct_quantize(i32, quant, 128, matrix),
+            lambda: kernels.fdct_quantize(i32, quant, 128),
+            lambda: kernels.fdct_quantize(u8, quant, 128),
+        )
+        timing[n] = (k_ms, p_ms)
+        gbs = n * 64 * 6 / (k_ms * 1e-3) / 1e9
+        log(f"kernel: {n} blocks: K2 int32 {k_ms:.6f} ms ({gbs:.1f} GB/s of 6 B per sample), "
+            f"K2 uint8 {u_ms:.6f} ms, plain int32 {p_ms:.6f} ms "
+            f"(device time, median of {TIMED_RUNS} in turns)")
+
+    # Exact ties: a constant block of ls + s has DC 8s exactly, so q = 16
+    # gives s/2, a .5 for odd s, which must round half to even.
+    s = np.arange(-128, 128)
+    want_dc = torch.from_numpy(np.rint(s / 2).astype(np.int16))
+    q16 = torch.full((64,), 16, dtype=torch.int32, device=dev)
+    for ls, dtype in ((128, torch.uint8), (128, torch.int32), (2048, torch.int32)):
+        plane = np.repeat(np.repeat((ls + s).reshape(16, 16), 8, 0), 8, 1)
+        plane = torch.from_numpy(plane).to(dtype).to(dev)
+        got = kernels.fdct_quantize(plane, q16, ls).reshape(256, 64).cpu()
+        plain = encode_stage.fdct_quantize(plane, q16, ls, matrix).reshape(256, 64).cpu()
+        check(torch.equal(got[:, 0], want_dc) and not got[:, 1:].any(), ("ties", ls, dtype))
+        check(torch.equal(got, plain), ("ties vs plain", ls, dtype))
+    log("kernel: K2 exact ties (128 odd DC values of s/2, uint8 and int32, level shifts "
+        "128 and 2048): all round half to even, equal to the plain version")
+    k_ms, p_ms = timing[KERNEL_BLOCKS[0]]
+    return {"name": "fdct_quantize", "route": "cuda", "source": K2_SOURCE,
+            "replaces": K2_REPLACES, "launches": None, "max_abs_err": worst,
             "ms": k_ms, "plain_ms": p_ms}
 
 
@@ -391,11 +468,13 @@ def phase_slice(record, dev):
         return outs, time.perf_counter() - start
 
     kernels.dequantize_idct_shift.launches = 0
+    kernels.fdct_quantize.launches = 0
     outs, secs = run()
     launches = kernels.dequantize_idct_shift.launches
     log(f"slice: stream run 1 {secs:.6f} s, {mp / secs:.3f} MP/s end to end; "
-        f"K1 launches {launches}")
+        f"K1 launches {launches}, K2 launches {kernels.fdct_quantize.launches}")
     check(launches == 3 * N_IMAGES, f"K1 launches {launches}")
+    check(kernels.fdct_quantize.launches == 0, "the decode launched K2")
     record["launches"] = launches
 
     for i, (out, gold) in enumerate(zip(outs, goldens)):
@@ -435,6 +514,102 @@ def phase_slice(record, dev):
     med = statistics.median(scan_s)
     log(f"slice: host scan alone {med * 1e3:.6f} ms per image (median of {N_IMAGES}), "
         f"{SIZE * SIZE / 1e6 / med:.3f} MP/s, one image at a time")
+    return sources
+
+
+def phase_encode(record, sources, dev):
+    """The device encode of ``sources`` on the card, held against the
+    port's CPU path (which the CPU tests hold to the JAX package's device
+    encode) and against the sources after a decode on the card."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.models import encoder as port_encoder
+    from jpeglibrary_tpu_torch.ops import encode_stage, kernels
+
+    jobs = [(rgb, {}) for rgb in sources] + [(sources[0], {"optimize_coding": True})]
+
+    def run():
+        datas, secs = [], []
+        for rgb, kwargs in jobs:
+            start = time.perf_counter()
+            datas.append(jtt.encode_rgb(rgb, 75, device=dev, **kwargs))
+            secs.append(time.perf_counter() - start)
+        return datas, secs
+
+    kernels.dequantize_idct_shift.launches = 0
+    kernels.fdct_quantize.launches = 0
+    datas, secs1 = run()
+    launches = kernels.fdct_quantize.launches
+    log(f"encode: run 1, {len(jobs)} images ({N_IMAGES} q75 4:2:0, one more with "
+        f"optimize_coding): {sum(secs1):.6f} s, {sum(map(len, datas))} JPEG bytes; "
+        f"K2 launches {launches}, K1 launches {kernels.dequantize_idct_shift.launches}")
+    check(launches == 3 * len(jobs), f"K2 launches {launches}")
+    check(kernels.dequantize_idct_shift.launches == 0, "the encode launched K1")
+    record["launches"] = launches
+
+    datas2, secs2 = run()
+    check(datas2 == datas, "a second encode run gave other bytes")
+    med = statistics.median(secs2[:N_IMAGES])
+    log(f"encode: run 2 bit-identical to run 1; encode_rgb end to end {med * 1e3:.6f} ms "
+        f"per image (median of {N_IMAGES}), {SIZE * SIZE / 1e6 / med:.3f} MP/s, "
+        "one image at a time")
+
+    colour_s, emit_s = [], []
+    for i, ((rgb, kwargs), data) in enumerate(zip(jobs, datas)):
+        enc = port_encoder.rgb_encoder(rgb, 75, **kwargs)
+        start = time.perf_counter()
+        port_encoder.sample_planes(enc)
+        colour_s.append(time.perf_counter() - start)
+        card = port_encoder.coefficient_planes(enc, device=dev)
+        cpu = port_encoder.coefficient_planes(enc, device="cpu")
+        n_diff = n_all = max_abs = 0
+        for g, w in zip(card, cpu):
+            d = np.abs(g.astype(np.int32) - w)
+            n_diff += int((d > 0).sum())
+            n_all += d.size
+            max_abs = max(max_abs, int(d.max()))
+        start = time.perf_counter()
+        card_bytes = port_encoder.emit(enc, card)
+        emit_s.append(time.perf_counter() - start)
+        check(card_bytes == data, (i, "the planes emit other bytes than encode_rgb"))
+        same = n_diff == 0 and port_encoder.emit(enc, cpu) == data
+        log(f"encode: image {i} {kwargs or ''}: coefficients vs CPU path max |diff| "
+            f"{max_abs}, {n_diff}/{n_all} differ; bytes "
+            f"{'equal to' if same else 'differ from'} the CPU path's")
+        check(max_abs <= 1 and n_diff <= n_all * 1e-3, (i, max_abs, n_diff))
+        check(n_diff > 0 or same, (i, "equal planes, other bytes"))
+
+    outs = list(jtt.decode_stream_rgb(datas, device=dev))
+    for i, (out, (rgb, kwargs)) in enumerate(zip(outs, jobs)):
+        check(out.device.type == dev.type and tuple(out.shape) == (3, SIZE, SIZE),
+              (out.device, tuple(out.shape)))
+        fidelity = psnr(out.cpu().numpy(), np.moveaxis(rgb, -1, 0))
+        log(f"encode: image {i} decoded on the card: PSNR vs the source {fidelity:.2f} dB")
+        check(fidelity >= MIN_PSNR_DB, (i, fidelity))
+
+    # Where one image's time goes; the planes of the first image.
+    enc = port_encoder.rgb_encoder(sources[0], 75)
+    planes = port_encoder.sample_planes(enc)
+    host_planes = [torch.from_numpy(p) for p in planes]
+    up_ms = wall_ms(lambda: torch.cat([p.reshape(-1) for p in host_planes]).to(dev))
+    dev_planes = [p.to(dev) for p in host_planes]
+    quants = port_encoder.device_quants(enc, dev)
+    mpl = mpc = SIZE // 16
+    comp_params = ((2, 2, 1, 1), (1, 1, 2, 2), (1, 1, 2, 2))
+    fwd_ms = wall_ms(lambda: encode_stage.forward(dev_planes, quants, comp_params,
+                                                  mpl, mpc, 128, dev))
+    (stage_ms,) = device_ms(lambda: [
+        encode_stage.forward_component(p, q, *cp, mpl, mpc, 128)
+        for p, q, cp in zip(dev_planes, quants, comp_params)])
+    outs = [encode_stage.forward_component(p, q, *cp, mpl, mpc, 128)
+            for p, q, cp in zip(dev_planes, quants, comp_params)]
+    down_ms = wall_ms(lambda: torch.cat([o.reshape(-1) for o in outs]).cpu())
+    log(f"encode: one image's parts: host colour {statistics.median(colour_s) * 1e3:.6f} ms "
+        f"(median of {len(jobs)}); upload {up_ms:.6f} ms (host clock); device stage "
+        f"(pad, subsample, 3 x K2) {stage_ms:.6f} ms (device time); download "
+        f"{down_ms:.6f} ms (host clock); forward with the planes on the card "
+        f"{fwd_ms:.6f} ms (host clock to the int16 planes on the host, median of "
+        f"{TIMED_RUNS}); host emission {statistics.median(emit_s) * 1e3:.6f} ms "
+        f"(median of {len(jobs)})")
 
 
 def main():
@@ -445,8 +620,10 @@ def main():
     phase_build()
     dev = torch.device("cuda")
     record = phase_kernel(dev)
-    phase_slice(record, dev)
-    print(json.dumps({"kernels": [record]}))
+    record_k2 = phase_kernel_fdct(dev)
+    sources = phase_slice(record, dev)
+    phase_encode(record_k2, sources, dev)
+    print(json.dumps({"kernels": [record, record_k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,17 +1,24 @@
-"""jpeglibrary_tpu_torch — the serving decode of jpeglibrary_tpu in
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+"""jpeglibrary_tpu_torch — the serving decode and the device encode of
+jpeglibrary_tpu in PyTorch, with hand-written CUDA kernels for NVIDIA
+Hopper.
 
-The host layers (container parsing, the native entropy scanner, frame
-geometry) are the JAX package's own, imported as they are; they load no
-JAX. This package holds the device side: the v2-wire densify, the K1
-dequantize + IDCT kernel (``csrc/dequant_idct.cu``), upsampling and
-colour conversion, and the streaming pipeline. Every entry point takes
-an explicit ``device``; CPU tensors run the kernels' plain PyTorch
-versions, CUDA tensors the kernels.
+The host layers (container parsing, the native entropy scanner and
+emitter, frame geometry, the encoder's tables) are the JAX package's
+own, imported as they are; they load no JAX. This package holds the
+device side: for the decode, the v2-wire densify, the K1 dequantize +
+IDCT kernel (``csrc/dequant_idct.cu``), upsampling and colour
+conversion, and the streaming pipeline; for the encode, padding, box
+subsampling and the K2 FDCT + quantize kernel (``csrc/fdct_quant.cu``).
+Every entry point takes an explicit ``device``; CPU tensors run the
+kernels' plain PyTorch versions, CUDA tensors the kernels.
 """
 
 from .models.decoder import device_inputs, to_rgb8_device
+from .models.encoder import encode, encode_gray, encode_rgb
 from .ops.pipeline import transform_mcu2
 from .parallel.batch import decode_stream_rgb
 
-__all__ = ["decode_stream_rgb", "device_inputs", "to_rgb8_device", "transform_mcu2"]
+__all__ = [
+    "decode_stream_rgb", "device_inputs", "encode", "encode_gray", "encode_rgb",
+    "to_rgb8_device", "transform_mcu2",
+]

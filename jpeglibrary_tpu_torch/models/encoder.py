@@ -1,0 +1,177 @@
+"""Device encode in PyTorch: a configured ``JpegEncoder`` -> JPEG bytes,
+with the sample transform on a PyTorch device.
+
+Port of the device branch of ``jpeglibrary_tpu.models.encoder.JpegEncoder.encode``
+(``xp=jnp``) and of its entry points ``encode_rgb`` and ``encode_gray``.
+The host layers stay the JAX package's own: RGB input is converted on
+the host with the native ``rgb_to_ycbcr``, as that branch converts it;
+``ops.encode_stage.forward`` computes the coefficient planes on the
+device; and a shallow copy of the encoder, given those planes through
+``set_coefficient_planes``, orders them into MCUs and runs the Huffman
+or arithmetic emission, which gives the bytes the JAX branch gives for
+the same planes.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import List
+
+import numpy as np
+import torch
+
+from jpeglibrary_tpu.models.encoder import (
+    JpegEncodeError,
+    JpegEncoder,
+    _configure_rgb_encoder,
+)
+from jpeglibrary_tpu.models.geometry import ceil_div
+from jpeglibrary_tpu.syntax import huffman_standard
+from jpeglibrary_tpu.syntax.quantization import scale_by_quality, standard_luminance_table
+
+from ..ops import _build, encode_stage
+
+#: Inputs the device branch does not take through ``jitted_forward``.
+_UNPORTED_INPUTS = {
+    "_input_reader": "streaming readers",
+    "_input_rgb_reader": "streaming RGB readers",
+    "_input_stream": "streams of unknown height",
+    "_input_ink": "CMYK/YCCK ink",
+    "_coefficient_planes": "coefficient planes",
+}
+
+
+def device_quants(encoder: JpegEncoder, device) -> torch.Tensor:
+    """The encoder's quant tables in component order, stacked as int32
+    [C, 64] zig-zag on ``device``."""
+    by_id = {t.identifier: t for t in encoder._quant_tables}
+    quants = []
+    for comp in encoder._components:
+        table = by_id.get(comp.quantization_table_id)
+        if table is None or table.is_empty:
+            raise JpegEncodeError(
+                f"Quantization table {comp.quantization_table_id} is not defined."
+            )
+        quants.append(table.elements)
+    return torch.from_numpy(np.stack(quants).astype(np.int32)).to(device)
+
+
+def sample_planes(encoder: JpegEncoder) -> List[np.ndarray]:
+    """The encoder's sample planes as the device stage takes them (uint8
+    at 8 bits, int32 at 12): its input planes, or its RGB input converted
+    on the host. Raises for what the device branch does not take."""
+    for field, what in _UNPORTED_INPUTS.items():
+        if getattr(encoder, field) is not None:
+            raise JpegEncodeError(f"the device encode does not take {what}")
+    if encoder.differential:
+        raise JpegEncodeError("the device encode does not take differential frames")
+    if encoder.mesh is not None:
+        raise JpegEncodeError("the device encode does not take a JAX mesh")
+    if encoder.sample_precision not in (8, 12):
+        raise JpegEncodeError(
+            f"the device encode takes 8- and 12-bit samples, not {encoder.sample_precision}"
+        )
+    if not encoder._components:
+        raise JpegEncodeError("No component is specified.")
+    planes = encoder._input_planes
+    if planes is None:
+        if encoder._input_rgb is None:
+            raise JpegEncodeError("Input is not specified.")
+        from jpeglibrary_tpu.native import scanner as native_scanner
+
+        _build.load_scanner()
+        planes = native_scanner.rgb_to_ycbcr(encoder._input_rgb)
+    if len(planes) != len(encoder._components):
+        raise JpegEncodeError("Component count does not match input planes.")
+    dtype = np.uint8 if encoder.sample_precision == 8 else np.int32
+    return [np.asarray(p, dtype=dtype) for p in planes]
+
+
+def coefficient_planes(encoder: JpegEncoder, *, device) -> List[np.ndarray]:
+    """The device half of the encode: int16 [Hb, Wb, 64] zig-zag
+    coefficient planes, one per component, computed on ``device``."""
+    planes = sample_planes(encoder)
+    comps = encoder._components
+    max_h = max(c.h for c in comps)
+    max_v = max(c.v for c in comps)
+    comp_params = tuple((c.h, c.v, max_h // c.h, max_v // c.v) for c in comps)
+    outs = encode_stage.forward(
+        planes, device_quants(encoder, device), comp_params,
+        ceil_div(encoder._width, 8 * max_h), ceil_div(encoder._height, 8 * max_v),
+        1 << (encoder.sample_precision - 1), device,
+    )
+    return [o.numpy() for o in outs]
+
+
+def emit(encoder: JpegEncoder, planes) -> bytes:
+    """The host half: MCU ordering, tables and entropy emission of
+    ``planes`` by a shallow copy of ``encoder``, which keeps its input."""
+    _build.load_scanner()  # the native emitter; no image falls back to Python
+    out = copy.copy(encoder)
+    out._input_planes = None
+    out.set_coefficient_planes(planes, encoder._width, encoder._height)
+    return out.encode()
+
+
+def encode(encoder: JpegEncoder, *, device) -> bytes:
+    """JPEG bytes of a configured encoder, the sample transform on
+    ``device``: the port of ``JpegEncoder.encode(xp=jnp)``."""
+    return emit(encoder, coefficient_planes(encoder, device=device))
+
+
+def rgb_encoder(rgb: np.ndarray, quality: int = 75, *, subsampling: str = "420",
+                optimize_coding: bool = False, most_optimal_coding: bool = False,
+                restart_interval: int = 0, arithmetic: bool = False) -> JpegEncoder:
+    """The encoder that :func:`encode_rgb` runs, configured as
+    ``jpeglibrary_tpu.encode_rgb`` configures its own, with ``rgb`` as
+    its input."""
+    encoder = _configure_rgb_encoder(
+        quality, subsampling,
+        optimize_coding=optimize_coding,
+        most_optimal_coding=most_optimal_coding,
+        restart_interval=restart_interval,
+        arithmetic=arithmetic,
+    )
+    encoder.set_input_rgb(np.asarray(rgb, dtype=np.uint8))
+    return encoder
+
+
+def encode_rgb(rgb: np.ndarray, quality: int = 75, *, device, subsampling: str = "420",
+               optimize_coding: bool = False, most_optimal_coding: bool = False,
+               restart_interval: int = 0, arithmetic: bool = False) -> bytes:
+    """RGB [H, W, 3] uint8 -> JPEG bytes, as ``jpeglibrary_tpu.encode_rgb``
+    with the transform on ``device``."""
+    return encode(rgb_encoder(
+        rgb, quality, subsampling=subsampling, optimize_coding=optimize_coding,
+        most_optimal_coding=most_optimal_coding, restart_interval=restart_interval,
+        arithmetic=arithmetic,
+    ), device=device)
+
+
+def encode_gray(plane: np.ndarray, quality: int = 75, *, device,
+                optimize_coding: bool = False, most_optimal_coding: bool = False,
+                precision: int = 8, restart_interval: int = 0,
+                arithmetic: bool = False) -> bytes:
+    """Grayscale [H, W] -> JPEG bytes, as ``jpeglibrary_tpu.encode_gray``
+    with the transform on ``device``: 8-bit (SOF0) or 12-bit samples in
+    [0, 4095] (SOF1, level shift 2048, built tables)."""
+    encoder = JpegEncoder()
+    encoder.most_optimal_coding = most_optimal_coding
+    encoder.restart_interval = restart_interval
+    encoder.arithmetic = arithmetic
+    encoder.set_quantization_table(scale_by_quality(standard_luminance_table(0), quality))
+    if precision != 8:
+        encoder.sample_precision = precision
+        # The Annex-K tables cover 8-bit symbol ranges only.
+        optimize_coding = True
+    if arithmetic:
+        pass  # adaptive QM coder: no Huffman tables
+    elif optimize_coding or most_optimal_coding:
+        encoder.set_huffman_table(True, 0)
+        encoder.set_huffman_table(False, 0)
+    else:
+        encoder.set_huffman_table(True, 0, huffman_standard.dc_luminance())
+        encoder.set_huffman_table(False, 0, huffman_standard.ac_luminance())
+    encoder.add_component(1, 0, 0, 0, 1, 1)
+    encoder.set_input([plane])
+    return encode(encoder, device=device)

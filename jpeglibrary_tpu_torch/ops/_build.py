@@ -30,6 +30,25 @@ NVCC_FLAGS = (
 )
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_K1_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p,  # coeffs, quant
+    ctypes.c_void_p, ctypes.c_void_p,  # matrix, out
+    ctypes.c_int64, ctypes.c_int,      # n_blocks, level_shift
+    ctypes.c_void_p,                   # cudaStream_t
+]
+_K2_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p,  # plane, quant
+    ctypes.c_void_p, ctypes.c_void_p,  # matrix, out
+    ctypes.c_int64, ctypes.c_int64,    # height_blocks, width_blocks
+    ctypes.c_int,                      # level_shift
+    ctypes.c_void_p,                   # cudaStream_t
+]
+_ENTRY_POINTS = {
+    "jpx_dequant_idct_i32": _K1_ARGS,
+    "jpx_dequant_idct_i16": _K1_ARGS,
+    "jpx_fdct_quant_i32": _K2_ARGS,
+    "jpx_fdct_quant_u8": _K2_ARGS,
+}
 
 
 def find_nvcc() -> str:
@@ -93,14 +112,9 @@ def load_library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build_library()))
-            for name in ("jpx_dequant_idct_i32", "jpx_dequant_idct_i16"):
+            for name, argtypes in _ENTRY_POINTS.items():
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p,  # coeffs, quant
-                    ctypes.c_void_p, ctypes.c_void_p,  # matrix, out
-                    ctypes.c_int64, ctypes.c_int,      # n_blocks, level_shift
-                    ctypes.c_void_p,                   # cudaStream_t
-                ]
+                fn.argtypes = argtypes
             _LIB = lib
         return _LIB

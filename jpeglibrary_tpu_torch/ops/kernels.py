@@ -1,9 +1,10 @@
-"""K1, the decode transform kernel: dequantize + un-zigzag + 2-D IDCT +
-round + level shift over a batch of 8x8 blocks.
+"""The port's two kernels and their wrappers.
 
-Port of the decode half of ``jpeglibrary_tpu/ops/pallas_kernels.py``.
-The whole transform is linear up to the rounding, so it is one product
-with a folded [64, 64] matrix per block:
+K1, the decode transform: dequantize + un-zigzag + 2-D IDCT + round +
+level shift over a batch of 8x8 blocks. Port of the decode half of
+``jpeglibrary_tpu/ops/pallas_kernels.py``. The whole transform is linear
+up to the rounding, so it is one product with a folded [64, 64] matrix
+per block:
 
     samples[t, :] = rint( fl(coeff[t, :] * quant[:]) @ K ) + level_shift
     K[zz, 8*i+j]  = 0.125 * M[i, r(zz)] * M[j, c(zz)]
@@ -16,6 +17,14 @@ natural position of zig-zag index zz.
 PyTorch version (``decode_stage.dequantize_idct_shift``) only for a CPU
 tensor. The Pallas wrapper padded to a 1024-block tile; the CUDA kernel
 masks its ragged edge and nothing is padded.
+
+K2, the encode transform: level shift + 2-D FDCT + zig-zag + quantize,
+``rint(((s - level_shift) @ F) / q)`` with F the folded matrix of
+``jpeglibrary_tpu.ops.encode_stage.fdct_zigzag_matrix``. Port of the
+encode half of ``pallas_kernels.py``. :func:`fdct_quantize` launches
+``csrc/fdct_quant.cu`` on a CUDA plane, which reads the [Hp, Wp] sample
+plane itself instead of pre-cut blocks, and takes the plain version
+(``encode_stage.fdct_quantize``) only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -25,11 +34,12 @@ import threading
 
 import torch
 
-# The folded matrix is built with numpy; that module imports jax only
-# inside its Pallas functions, never at import.
+# The folded matrices are built with numpy; those modules import jax only
+# inside their Pallas and jit functions, never at import.
+from jpeglibrary_tpu.ops.encode_stage import fdct_zigzag_matrix
 from jpeglibrary_tpu.ops.pallas_kernels import fused_transform_matrix
 
-from . import _build, decode_stage
+from . import _build, decode_stage, encode_stage
 
 
 @functools.lru_cache(maxsize=16)
@@ -87,3 +97,58 @@ def dequantize_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
 
 
 dequantize_idct_shift.launches = 0
+
+
+@functools.lru_cache(maxsize=16)
+def fdct_matrix(device: torch.device) -> torch.Tensor:
+    """K2's folded FDCT + zig-zag matrix on ``device`` (one copy per device)."""
+    return torch.from_numpy(fdct_zigzag_matrix()).to(device)
+
+
+def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor,
+                  level_shift: int) -> torch.Tensor:
+    """[Hb*8, Wb*8] int32 (or uint8) sample plane + [64] int32 zig-zag
+    quant -> int16 zig-zag coefficients [Hb, Wb, 64].
+
+    ``fdct_quantize.launches`` counts the CUDA kernel's launches."""
+    if plane.dtype not in (torch.int32, torch.uint8):
+        raise TypeError(f"samples must be int32 or uint8, got {plane.dtype}")
+    if plane.dim() != 2 or plane.shape[0] % 8 or plane.shape[1] % 8:
+        raise ValueError(
+            f"samples must be one [H, W] plane with H and W multiples of 8, "
+            f"got {tuple(plane.shape)}"
+        )
+    if quant_zz.dtype != torch.int32 or tuple(quant_zz.shape) != (64,):
+        raise ValueError(
+            f"quant must be int32 [64], got {quant_zz.dtype} {tuple(quant_zz.shape)}"
+        )
+    if quant_zz.device != plane.device:
+        raise ValueError(f"quant on {quant_zz.device}, samples on {plane.device}")
+    device = plane.device
+    matrix = fdct_matrix(device)
+    if device.type == "cpu":
+        return encode_stage.fdct_quantize(plane, quant_zz, level_shift, matrix)
+    if device.type != "cuda":
+        raise ValueError(f"no K2 kernel for device {device}")
+    if not (plane.is_contiguous() and quant_zz.is_contiguous()):
+        raise ValueError("samples and quant must be contiguous")
+
+    hb, wb = plane.shape[0] // 8, plane.shape[1] // 8
+    out = torch.empty((hb, wb, 64), dtype=torch.int16, device=device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    fn = lib.jpx_fdct_quant_i32 if plane.dtype == torch.int32 else lib.jpx_fdct_quant_u8
+    with torch.cuda.device(device):
+        err = fn(
+            plane.data_ptr(), quant_zz.data_ptr(), matrix.data_ptr(), out.data_ptr(),
+            hb, wb, int(level_shift), torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        fdct_quantize.launches += 1
+    return out
+
+
+fdct_quantize.launches = 0

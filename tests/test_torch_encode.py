@@ -1,0 +1,325 @@
+"""PyTorch port, the device encode on the CPU: K2's plain version against
+the JAX package's Pallas kernel (interpret mode) and its XLA path, the
+integer pad/subsample ops bit-exact against numpy, ``forward`` against
+``jitted_forward``, and the entry points against the JAX device encode
+(``xp=jnp``).
+
+Tolerance for coefficients: 1 LSB on at most 1e-3 of the values. The
+folded-matrix product sums in another order than XLA's dot and the
+Pallas interpreter, so a quotient within an ulp of a .5 tie can round
+the other way (the JAX package's own contract,
+tests/test_pallas_kernels.py). Ties that are exact in fp32 must round
+exactly, half to even. Bytes must be equal wherever the coefficient
+planes are equal."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+import jpeglibrary_tpu as jt
+import jpeglibrary_tpu_torch as jtt
+from jpeglibrary_tpu.models import encoder as ref_encoder
+from jpeglibrary_tpu.ops import encode_stage as ref_stage
+from jpeglibrary_tpu.ops import pallas_kernels
+from jpeglibrary_tpu_torch.models import encoder as port_encoder
+from jpeglibrary_tpu_torch.ops import encode_stage, kernels
+
+LEVEL_SHIFTS = [128, 2048]
+
+
+def _samples(shape, level_shift, seed):
+    """Samples of the precision that ``level_shift`` implies: uint8 at
+    8 bits, int32 in [0, 4095] at 12."""
+    rng = np.random.default_rng(seed)
+    if level_shift == 128:
+        return rng.integers(0, 256, size=shape).astype(np.uint8)
+    return rng.integers(0, 4096, size=shape).astype(np.int32)
+
+
+def _quant(seed):
+    return np.random.default_rng(seed).integers(1, 256, size=64).astype(np.int32)
+
+
+def _plain(plane, quant, level_shift):
+    return encode_stage.fdct_quantize(
+        torch.from_numpy(plane), torch.from_numpy(quant), level_shift,
+        kernels.fdct_matrix(torch.device("cpu")),
+    ).numpy()
+
+
+def _assert_within_one(got, want):
+    got = np.asarray(got).astype(np.int64)
+    want = np.asarray(want).astype(np.int64)
+    assert got.shape == want.shape
+    d = np.abs(got - want)
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())
+
+
+def _gradient_noise(h, w, seed, sigma=30.0):
+    rng = np.random.default_rng(seed)
+    return np.clip(
+        np.linspace(0, 255, w)[None, :, None] + rng.normal(0, sigma, (h, w, 3)), 0, 255
+    ).astype(np.uint8)
+
+
+# --- K2's plain version ---------------------------------------------------
+
+@pytest.mark.parametrize("level_shift", LEVEL_SHIFTS)
+@pytest.mark.parametrize("n_blocks", [1, 64, 513])
+def test_plain_matches_pallas_interpret(n_blocks, level_shift):
+    plane = _samples((8, 8 * n_blocks), level_shift, seed=n_blocks)
+    quant = _quant(3)
+    blocks = plane.reshape(8, n_blocks, 8).transpose(1, 0, 2).reshape(n_blocks, 64)
+    want = np.asarray(pallas_kernels.fdct_quantize_pallas(
+        jnp.asarray(blocks.astype(np.int32)), jnp.asarray(quant),
+        level_shift=level_shift, interpret=True,
+    ))
+    got = _plain(plane, quant, level_shift)
+    assert got.dtype == np.int16 and got.shape == (1, n_blocks, 64)
+    _assert_within_one(got[0], want)
+
+
+@pytest.mark.parametrize("level_shift", LEVEL_SHIFTS)
+def test_plain_matches_xla(level_shift):
+    plane = _samples((256, 512), level_shift, seed=11)
+    quant = _quant(4)
+    want = np.asarray(ref_stage.fdct_quantize(
+        jnp.asarray(plane.astype(np.int32)), jnp.asarray(quant), xp=jnp,
+        level_shift=float(level_shift),
+    ))
+    got = _plain(plane, quant, level_shift)
+    assert got.dtype == np.int16 and got.shape == want.shape == (32, 64, 64)
+    _assert_within_one(got, want)
+
+
+@pytest.mark.parametrize("level_shift", LEVEL_SHIFTS)
+def test_ties_round_half_to_even(level_shift):
+    """A constant block of level_shift + s has DC 8s exactly (F's DC
+    column is 1/8 everywhere), so q = 16 makes DC = s/2: an exact .5 for
+    odd s, which must round to the even neighbour."""
+    s = np.arange(-128, 128)
+    plane = np.repeat(np.repeat((level_shift + s).reshape(16, 16), 8, 0), 8, 1)
+    plane = plane.astype(np.uint8 if level_shift == 128 else np.int32)
+    got = _plain(plane, np.full(64, 16, np.int32), level_shift).reshape(256, 64)
+    np.testing.assert_array_equal(got[:, 0], np.rint(s / 2).astype(np.int16))
+    assert not got[:, 1:].any()
+    assert (np.rint(s / 2) != np.floor(s / 2 + 0.5)).sum() == 64  # half of the odd s
+
+
+def test_fdct_matrix_equals_jax_package():
+    ours = kernels.fdct_matrix(torch.device("cpu"))
+    assert ours.dtype == torch.float32 and tuple(ours.shape) == (64, 64)
+    np.testing.assert_array_equal(ours.numpy(), ref_stage.fdct_zigzag_matrix())
+
+
+# --- pad and subsample ----------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("hs,vs", [(1, 1), (2, 2), (2, 1), (1, 2), (4, 1)])
+def test_pad_and_subsample_bit_exact(hs, vs, dtype):
+    plane = np.random.default_rng(hs * 10 + vs).integers(0, 256, size=(37, 53)).astype(dtype)
+    hp, wp = 8 * vs * 5, 8 * hs * 7  # the grid of 37x53 with 8x8 blocks after subsampling
+    want_pad = ref_stage.pad_to_grid(plane, hp, wp, xp=np)
+    got_pad = encode_stage.pad_to_grid(torch.from_numpy(plane), hp, wp)
+    assert got_pad.dtype == torch.from_numpy(plane).dtype
+    np.testing.assert_array_equal(got_pad.numpy(), want_pad)
+    assert not got_pad[37:].any() and not got_pad[:, 53:].any()
+    want = ref_stage.subsample_box(want_pad, hs, vs, xp=np)
+    got = encode_stage.subsample_box(got_pad, hs, vs)
+    # A 1x1 box keeps the plane's dtype (K2 takes uint8); the JAX version widens it.
+    assert got.dtype == (got_pad.dtype if (hs, vs) == (1, 1) else torch.int32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# --- forward against jitted_forward ---------------------------------------
+
+FORWARD_CASES = {
+    "420": (((2, 2, 1, 1), (1, 1, 2, 2), (1, 1, 2, 2)), 128),
+    "422": (((2, 1, 1, 1), (1, 1, 2, 1), (1, 1, 2, 1)), 128),
+    "444": (((1, 1, 1, 1),) * 3, 128),
+    "gray": (((1, 1, 1, 1),), 128),
+    "gray12": (((1, 1, 1, 1),), 2048),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORWARD_CASES))
+def test_forward_matches_jitted_forward(case):
+    comp_params, level_shift = FORWARD_CASES[case]
+    h, w = 77, 133
+    max_h = max(p[0] for p in comp_params)
+    max_v = max(p[1] for p in comp_params)
+    mpl, mpc = -(-w // (8 * max_h)), -(-h // (8 * max_v))
+    planes = tuple(_samples((h, w), level_shift, seed=i) for i in range(len(comp_params)))
+    quants = np.stack([_quant(20 + i) for i in range(len(comp_params))])
+    fwd = ref_stage.jitted_forward(comp_params, mpl, mpc, float(level_shift))
+    want = [np.asarray(o) for o in fwd(planes, quants)]
+    before = kernels.fdct_quantize.launches
+    got = encode_stage.forward(planes, quants, comp_params, mpl, mpc, level_shift, "cpu")
+    assert kernels.fdct_quantize.launches == before
+    assert len(got) == len(want)
+    for g, wnt in zip(got, want):
+        assert g.dtype == torch.int16 and g.device.type == "cpu"
+        _assert_within_one(g.numpy(), wnt)
+
+
+# --- the entry points against the JAX device encode -------------------------
+
+RGB_CASES = {
+    "420": {},
+    "444": {"subsampling": "444"},
+    "422": {"subsampling": "422"},
+    "420_optimize": {"optimize_coding": True},
+    "420_restart3": {"restart_interval": 3},
+    "444_optimize_restart3": {"subsampling": "444", "optimize_coding": True,
+                              "restart_interval": 3},
+    "420_arithmetic": {"arithmetic": True},
+}
+
+
+def _jax_planes(encoder):
+    """The coefficient planes of the JAX device branch for ``encoder``."""
+    comps = encoder._components
+    max_h = max(c.h for c in comps)
+    max_v = max(c.v for c in comps)
+    fwd = ref_stage.jitted_forward(
+        tuple((c.h, c.v, max_h // c.h, max_v // c.v) for c in comps),
+        -(-encoder._width // (8 * max_h)), -(-encoder._height // (8 * max_v)),
+        float(1 << (encoder.sample_precision - 1)),
+    )
+    planes = port_encoder.sample_planes(encoder)
+    return [np.asarray(o) for o in fwd(tuple(planes), port_encoder.device_quants(
+        encoder, "cpu").numpy())]
+
+
+def _check_against_jax(encoder, got_bytes, want_bytes):
+    got_planes = port_encoder.coefficient_planes(encoder, device="cpu")
+    want_planes = _jax_planes(encoder)
+    for g, w in zip(got_planes, want_planes):
+        _assert_within_one(g, w)
+    if all(np.array_equal(g, w) for g, w in zip(got_planes, want_planes)):
+        assert got_bytes == want_bytes
+    # The stream itself carries the planes: decode both and compare.
+    got_res, want_res = jt.decode(got_bytes), jt.decode(want_bytes)
+    for c in want_res.geometry.components:
+        _assert_within_one(got_res.coefficients[c.component_index],
+                           want_res.coefficients[c.component_index])
+
+
+@pytest.mark.parametrize("case", sorted(RGB_CASES))
+def test_encode_rgb_matches_jax_device_encode(case):
+    kwargs = RGB_CASES[case]
+    rgb = _gradient_noise(77, 133, seed=len(case))
+    got = jtt.encode_rgb(rgb, 75, device="cpu", **kwargs)
+    want = ref_encoder.encode_rgb(rgb, 75, xp=jnp, **kwargs)
+    _check_against_jax(port_encoder.rgb_encoder(rgb, 75, **kwargs), got, want)
+
+
+@pytest.mark.parametrize("precision", [8, 12])
+def test_encode_gray_matches_jax_device_encode(precision):
+    level_shift = 1 << (precision - 1)
+    plane = _samples((77, 133), level_shift, seed=precision)
+    got = jtt.encode_gray(plane, 80, device="cpu", precision=precision)
+    want = ref_encoder.encode_gray(plane, 80, precision=precision, xp=jnp)
+    encoder = ref_encoder.JpegEncoder()
+    encoder.sample_precision = precision
+    encoder.set_quantization_table(ref_encoder.scale_by_quality(
+        ref_encoder.standard_luminance_table(0), 80))
+    encoder.add_component(1, 0, 0, 0, 1, 1)
+    encoder.set_input([plane])
+    _check_against_jax(encoder, got, want)
+    assert jt.decode(got).to_uint16_extended().shape[:2] == (77, 133)
+
+
+def test_encode_keeps_the_callers_input():
+    rgb = _gradient_noise(40, 56, seed=5)
+    encoder = port_encoder.rgb_encoder(rgb, 75)
+    first = jtt.encode(encoder, device="cpu")
+    np.testing.assert_array_equal(encoder._input_rgb, rgb)
+    assert encoder._input_planes is None and encoder._coefficient_planes is None
+    assert jtt.encode(encoder, device="cpu") == first
+
+
+def _ink_encoder():
+    encoder = ref_encoder._configure_rgb_encoder(75, "444")
+    encoder.add_component(4, 0, 0, 0, 1, 1)
+    encoder.set_input_ink(np.zeros((16, 16, 4), np.uint8))
+    return encoder
+
+
+def _unported(kind):
+    rgb = _gradient_noise(16, 16, seed=1)
+    encoder = ref_encoder._configure_rgb_encoder(75, "420")
+    if kind == "rgb_reader":
+        encoder.set_input_rgb_reader(lambda y0, y1: rgb[y0:y1], 16, 16)
+    elif kind == "reader":
+        encoder.set_input_reader(lambda y0, y1: [rgb[y0:y1, :, i] for i in range(3)], 16, 16)
+    elif kind == "stream":
+        encoder.set_input_stream(iter([[rgb[..., i] for i in range(3)]]), 16)
+    elif kind == "ink":
+        encoder = _ink_encoder()
+    elif kind == "coefficients":
+        encoder.set_coefficient_planes([np.zeros((2, 2, 64), np.int16)] * 3, 16, 16)
+    elif kind == "differential":
+        encoder.set_input_rgb(rgb)
+        encoder.differential = True
+    elif kind == "precision16":
+        encoder.set_input([rgb[..., i].astype(np.int32) for i in range(3)])
+        encoder.sample_precision = 16
+    elif kind == "no_input":
+        pass
+    return encoder
+
+
+@pytest.mark.parametrize("kind", ["rgb_reader", "reader", "stream", "ink", "coefficients",
+                                  "differential", "precision16", "no_input"])
+def test_encode_raises_for_unported_inputs(kind):
+    with pytest.raises(ref_encoder.JpegEncodeError):
+        jtt.encode(_unported(kind), device="cpu")
+
+
+# The encoder's private fields that jpeglibrary_tpu_torch/models/encoder.py reads.
+HOST_FIELDS = ("_components", "_quant_tables", "_input_planes", "_input_rgb",
+               "sample_precision", "_width", "_height")
+
+
+def test_encoder_fields_the_port_reads_exist():
+    fields = vars(ref_encoder.JpegEncoder())
+    missing = [f for f in HOST_FIELDS if f not in fields]
+    assert not missing, missing
+    for f in port_encoder._UNPORTED_INPUTS:
+        assert f in fields, f
+
+
+# --- the wrapper's dispatch -----------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8])
+def test_wrapper_on_cpu_takes_plain_version(dtype):
+    plane = _samples((24, 40), 128, seed=9)
+    quant = _quant(9)
+    before = kernels.fdct_quantize.launches
+    got = kernels.fdct_quantize(torch.from_numpy(plane).to(dtype), torch.from_numpy(quant), 128)
+    assert kernels.fdct_quantize.launches == before
+    assert got.shape == (3, 5, 64) and got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), _plain(plane, quant, 128))
+
+
+def test_wrapper_rejects_bad_inputs():
+    p = torch.from_numpy(_samples((16, 16), 128, seed=1)).to(torch.int32)
+    q = torch.from_numpy(_quant(1))
+    with pytest.raises(TypeError):
+        kernels.fdct_quantize(p.to(torch.float32), q, 128)
+    with pytest.raises(TypeError):
+        kernels.fdct_quantize(p.to(torch.int16), q, 128)
+    with pytest.raises(ValueError):
+        kernels.fdct_quantize(p[:, :12], q, 128)
+    with pytest.raises(ValueError):
+        kernels.fdct_quantize(p.reshape(2, 8, 16), q, 128)
+    with pytest.raises(ValueError):
+        kernels.fdct_quantize(p, q[:32], 128)
+    with pytest.raises(ValueError):
+        kernels.fdct_quantize(p, q.to(torch.int64), 128)
+    with pytest.raises(ValueError):
+        kernels.fdct_quantize(p.to("meta"), q.to("meta"), 128)
