@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card at the size users run: the
+Drives the port's main paths on the card at the size users run: the
 serving decode, a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
-JPEGs through ``decode_stream_rgb(..., device="cuda")``, and the device
-encode, the same 8 images through ``encode_rgb(..., device="cuda")``.
-In order:
+JPEGs through ``decode_stream_rgb(..., device="cuda")``, image by image
+and in groups; the batch decode ``decode_batch_rgb``; the v1 wires; the
+thumbnail decode at 1/2, 1/4 and 1/8; and the device encode, the same 8
+images through ``encode_rgb(..., device="cuda")``. In order:
 
 1. environment: the card, its power limit, torch, CUDA, nvcc, triton;
 2. build: the CUDA kernels (nvcc, sm_90a) and the native scanner (g++);
@@ -15,7 +16,12 @@ In order:
    a 2048x2048 4:2:0 image), at level shifts 128 and 2048, max |diff|
    <= 1 on <= 1e-3 of the values, with both device times (CUDA events,
    median of runs in turns):
-   K1 (dequantize + IDCT) from int32 and int16 coefficients;
+   K1 (dequantize + IDCT) from int32 and int16 coefficients, and its
+   variants: 8 quant tables over 8 x 65,536 blocks (a group of 8 Y
+   planes) and over 8 x 65,500 (CTAs that straddle two tables), and the
+   reduced outputs n = 4, 2, 1 of the thumbnail decode (at n = 2 the
+   folded sums sit near .5 ties on about one sample in eight, so there
+   every differing sample must be such a near tie);
    K2 (FDCT + quantize) from int32 and uint8 sample planes, plus exact
    .5 ties (constant blocks, q = 16) that must round half to even;
 4. decode slice: the images are synthesised (a numpy gradient plus noise
@@ -26,7 +32,20 @@ In order:
    image; then MP/s end to end (the median of warm runs, each
    bit-identical to the first), and the host-clock times of the
    transform alone and of the host scan alone;
-5. encode slice: the same images through ``encode_rgb`` at q75 4:2:0,
+5. batch: ``decode_batch_rgb`` and ``decode_stream_rgb(group=8)`` over
+   the same images, K1 launched 3 times per group, each image within the
+   contract of the CPU path and equal to the card's single-image output;
+   batch MP/s, stream MP/s at group 1, 2, 4 and 8, and the transform's
+   host time per image in a group of 8;
+6. wires: 4 of the images encoded on the card with arithmetic coding,
+   which the fused scan declines, through the v1 plane-order wire; and
+   the 8 under ``JPX_WIRE=1`` through the v1 MCU wire, grouped; each
+   within the contract of the CPU path, with MP/s;
+7. thumbnails: ``decode_stream_rgb(scale=1/8)``, ``decode_stream_rgb(
+   scale=1/4, group=8)`` and ``decode_batch_rgb(scale=1/2)``, each of
+   shape ceil(H*n/8) within the scaled contract (<= 2 levels on < 5%)
+   of the CPU path, with source MP/s;
+8. encode slice: the same images through ``encode_rgb`` at q75 4:2:0,
    and one more with ``optimize_coding=True``, with K2 launched exactly 3
    times per image; the card's coefficient planes within 1 of the port's
    CPU path on <= 1e-3 of the values, and the bytes equal to the CPU
@@ -36,8 +55,10 @@ In order:
    colour conversion, upload, device stage, download, host emission) and
    the median per image end to end.
 
-Any failure raises and the script exits non-zero. The line before the
-last is a JSON record of the kernels; the last line is
+Each phase sets the kernels' launch counts to 0 just before the path it
+drives and reads them just after. Any failure raises and the script
+exits non-zero. The line before the last is a JSON record of the
+kernels (K1, one entry per K1 variant, K2); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
 of this repo only the port, ``jpeglibrary_tpu_torch``.
@@ -46,6 +67,7 @@ of this repo only the port, ``jpeglibrary_tpu_torch``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -60,11 +82,22 @@ K2_SOURCE = "jpeglibrary_tpu_torch/csrc/fdct_quant.cu"
 K2_REPLACES = "jpeglibrary_tpu/ops/pallas_kernels.py:99"
 KERNEL_BLOCKS = (65536, 16384)  # Y and each chroma plane of a 2048x2048 4:2:0 image
 LEVEL_SHIFTS = (128, 2048)
+# K1's variants: (record key, label, quant tables, blocks per table, n).
+K1_VARIANTS = (
+    ("k1_tables", "8 tables", 8, 65536, 8),  # a group of 8 Y planes
+    (None, "8 tables, straddling", 8, 65500, 8),  # CTAs of 64 blocks span two tables
+    ("k1_n4", "n=4", 1, 65536, 4),  # the Y plane at 1/2
+    ("k1_n2", "n=2", 1, 65536, 2),  # at 1/4
+    ("k1_n1", "n=1", 1, 65536, 1),  # at 1/8
+)
 N_IMAGES = 8
+N_ARITH = 4  # images re-encoded with arithmetic coding for the v1 plane-order wire
 SIZE = 2048
 TIMED_RUNS = 25
 STREAM_RUNS = 5  # warm stream runs after the first; host-clock times vary from run to run
+GROUPS = (1, 2, 4, 8)
 MIN_PSNR_DB = 22.0  # the decode against its source image; q75 and the noise give ~24.6 dB
+SCALED_SHARE = 0.05  # the JAX package's scaled contract: <= 2 levels on < 5% of the values
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clocks
 
 
@@ -117,6 +150,46 @@ def wall_ms(fn, runs=TIMED_RUNS, warmup=3):
     return statistics.median(times)
 
 
+def timed(fn):
+    """``fn()`` and its host-clock seconds to a synchronised card."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def warm_median_s(fn, runs=STREAM_RUNS):
+    """Median host-clock seconds of ``runs`` calls of ``fn`` after one
+    warm-up call."""
+    fn()
+    return statistics.median(timed(fn)[1] for _ in range(runs))
+
+
+def stream(datas, dev, **kwargs):
+    import jpeglibrary_tpu_torch as jtt
+
+    return list(jtt.decode_stream_rgb(datas, device=dev, **kwargs))
+
+
+def reset_counts():
+    from jpeglibrary_tpu_torch.ops import kernels
+
+    kernels.dequantize_idct_shift.launches = 0
+    kernels.fdct_quantize.launches = 0
+
+
+def check_close(got, want, what, share=1e-4):
+    """``got`` within 2 RGB levels of ``want`` on at most ``share`` of the
+    values; logs and returns (max |diff|, differing values)."""
+    check(got.shape == want.shape, (what, got.shape, want.shape))
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    n_diff = int((d > 0).sum())
+    log(f"{what}: max |diff| {int(d.max())}, {n_diff}/{d.size} values differ")
+    check(d.max() <= 2 and n_diff <= d.size * share, (what, int(d.max()), n_diff))
+    return int(d.max()), n_diff
+
+
 def phase_environment():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -163,7 +236,8 @@ def phase_build():
 
 
 def phase_kernel(dev):
-    """K1 against its plain version on the card; returns the record."""
+    """K1 and its variants against the plain version on the card; returns
+    the records, keyed "k1" and by K1_VARIANTS."""
     from jpeglibrary_tpu_torch.ops import decode_stage, kernels
 
     matrix = kernels.transform_matrix(dev)
@@ -178,7 +252,7 @@ def phase_kernel(dev):
         for ls in LEVEL_SHIFTS:
             for c in (coeffs, coeffs16):
                 got = kernels.dequantize_idct_shift(c, quant, ls)
-                want = decode_stage.dequantize_idct_shift(c, quant, ls, matrix)
+                want = decode_stage.dequantize_idct_shift(c, quant, n, ls, matrix)
                 torch.cuda.synchronize()
                 check(got.shape == want.shape == (n, 8, 8) and got.dtype == torch.int32,
                       (tuple(got.shape), got.dtype))
@@ -190,7 +264,7 @@ def phase_kernel(dev):
                 check(max_abs <= 1 and share <= 1e-3, (n, c.dtype, ls, max_abs, share))
                 worst = max(worst, max_abs)
         p_ms, k_ms = device_ms(
-            lambda: decode_stage.dequantize_idct_shift(coeffs, quant, 128, matrix),
+            lambda: decode_stage.dequantize_idct_shift(coeffs, quant, n, 128, matrix),
             lambda: kernels.dequantize_idct_shift(coeffs, quant, 128),
         )
         timing[n] = (k_ms, p_ms)
@@ -198,9 +272,58 @@ def phase_kernel(dev):
         log(f"kernel: {n} blocks int32: K1 {k_ms:.6f} ms ({gbs:.1f} GB/s of 8 B per sample), "
             f"plain {p_ms:.6f} ms (device time, median of {TIMED_RUNS} in turns)")
     k_ms, p_ms = timing[KERNEL_BLOCKS[0]]
-    return {"name": "dequantize_idct_shift", "route": "cuda", "source": K1_SOURCE,
-            "replaces": K1_REPLACES, "launches": None, "max_abs_err": worst,
-            "ms": k_ms, "plain_ms": p_ms}
+    records = {"k1": {"name": "dequantize_idct_shift", "route": "cuda", "source": K1_SOURCE,
+                      "replaces": K1_REPLACES, "launches": None, "max_abs_err": worst,
+                      "ms": k_ms, "plain_ms": p_ms}}
+
+    for key, label, n_tables, per_table, n in K1_VARIANTS:
+        # Full-size variants at the K1 check's magnitudes above; the reduced ones at a
+        # real decode's (dequantized coefficients up to 2048), where fp32
+        # rounding noise is far below the .5 ties' spacing.
+        lo, q_hi = (1024, 256) if n == 8 else (64, 32)
+        n_blocks = n_tables * per_table
+        coeffs = torch.from_numpy(
+            rng.integers(-lo, lo, size=(n_blocks, 64)).astype(np.int32)).to(dev)
+        quants = torch.from_numpy(
+            rng.integers(1, q_hi, size=(n_tables, 64)).astype(np.int32)).to(dev)
+        matrix_n = kernels.transform_matrix(dev, n)
+
+        def plain():
+            return decode_stage.dequantize_idct_shift(coeffs, quants, per_table, 128, matrix_n)
+
+        def kernel():
+            return kernels.dequantize_idct_shift(coeffs, quants, 128,
+                                                 blocks_per_table=per_table, scale_n=n)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(got.shape == want.shape == (n_blocks, n, n) and got.dtype == torch.int32,
+              (label, tuple(got.shape), got.dtype))
+        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        max_abs = int(diff.max())
+        share = float((diff > 0).double().mean())
+        if n == 2:
+            table = torch.arange(n_blocks, device=dev) // per_table
+            exact = (coeffs.double() * quants[table].double()) @ matrix_n.double()
+            near_tie = ((exact - exact.floor() - 0.5).abs() < 1e-3).reshape(got.shape)
+            off_tie = int((diff > 0)[~near_tie].sum())
+            log(f"kernel: K1 {label}: {float(near_tie.double().mean()):.3e} of the samples "
+                f"are near .5 ties; differing samples off them: {off_tie}")
+            check(max_abs <= 1 and off_tie == 0, (label, max_abs, off_tie))
+        else:
+            check(max_abs <= 1 and share <= 1e-3, (label, max_abs, share))
+        p_ms, k_ms = device_ms(plain, kernel)
+        log(f"kernel: K1 {label}, {n_tables} x {per_table} blocks -> [{n_blocks}, {n}, {n}]: "
+            f"max |diff| {max_abs}, differing share {share:.3e}; K1 {k_ms:.6f} ms, plain "
+            f"{p_ms:.6f} ms (device time, median of {TIMED_RUNS} in turns)")
+        if key is None:  # the straddling layout: a check on the "8 tables" record
+            records["k1_tables"]["max_abs_err"] = max(records["k1_tables"]["max_abs_err"],
+                                                      max_abs)
+            continue
+        records[key] = {"name": f"dequantize_idct_shift[{label}]", "route": "cuda",
+                        "source": K1_SOURCE, "replaces": K1_REPLACES, "launches": None,
+                        "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms}
+    return records
 
 
 def phase_kernel_fdct(dev):
@@ -443,6 +566,8 @@ def psnr(a, b):
 
 
 def phase_slice(record, dev):
+    """The stream decode, image by image; returns the slice's sources,
+    JPEGs, CPU goldens and card outputs for the later phases."""
     import jpeglibrary_tpu_torch as jtt
     from jpeglibrary_tpu_torch.ops import kernels
     from jpeglibrary_tpu_torch.parallel.batch import scan
@@ -461,14 +586,9 @@ def phase_slice(record, dev):
     mp = N_IMAGES * SIZE * SIZE / 1e6
 
     def run():
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        outs = list(jtt.decode_stream_rgb(datas, device=dev))
-        torch.cuda.synchronize()
-        return outs, time.perf_counter() - start
+        return timed(lambda: stream(datas, dev))
 
-    kernels.dequantize_idct_shift.launches = 0
-    kernels.fdct_quantize.launches = 0
+    reset_counts()
     outs, secs = run()
     launches = kernels.dequantize_idct_shift.launches
     log(f"slice: stream run 1 {secs:.6f} s, {mp / secs:.3f} MP/s end to end; "
@@ -514,7 +634,157 @@ def phase_slice(record, dev):
     med = statistics.median(scan_s)
     log(f"slice: host scan alone {med * 1e3:.6f} ms per image (median of {N_IMAGES}), "
         f"{SIZE * SIZE / 1e6 / med:.3f} MP/s, one image at a time")
-    return sources
+    return {"sources": sources, "datas": datas, "goldens": goldens, "outs": outs}
+
+
+def phase_batch(records, sl, dev):
+    """``decode_batch_rgb`` and the grouped stream over the slice's images:
+    one group of 8, K1 launched 3 times for it, every image equal to the
+    card's single-image output; then the throughputs."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.ops import kernels
+    from jpeglibrary_tpu_torch.parallel.batch import group_wire, scan
+
+    datas, goldens, singles = sl["datas"], sl["goldens"], sl["outs"]
+    mp = N_IMAGES * SIZE * SIZE / 1e6
+
+    reset_counts()
+    outs = jtt.decode_batch_rgb(datas, device=dev)
+    launches = kernels.dequantize_idct_shift.launches
+    log(f"batch: decode_batch_rgb over {N_IMAGES} images: K1 launches {launches}")
+    check(launches == 3, f"decode_batch_rgb launched K1 {launches} times")
+    records["k1_tables"]["launches"] = launches
+    for i, out in enumerate(outs):
+        check(isinstance(out, np.ndarray) and out.dtype == np.uint8
+              and out.shape == (SIZE, SIZE, 3), (i, type(out), getattr(out, "shape", None)))
+        got = np.moveaxis(out, -1, 0)
+        check_close(got, goldens[i], f"batch: image {i} vs CPU golden")
+        check(np.array_equal(got, singles[i].cpu().numpy()),
+              (i, "decode_batch_rgb differs from the card's single-image output"))
+    batch_s = warm_median_s(lambda: jtt.decode_batch_rgb(datas, device=dev))
+    log(f"batch: decode_batch_rgb median {batch_s:.6f} s of {STREAM_RUNS} warm runs, "
+        f"{mp / batch_s:.3f} MP/s end to end (bytes in, HWC uint8 on the host out)")
+
+    reset_counts()
+    outs = stream(datas, dev, group=N_IMAGES)
+    launches = kernels.dequantize_idct_shift.launches
+    log(f"batch: decode_stream_rgb(group={N_IMAGES}): K1 launches {launches}")
+    check(launches == 3, f"the grouped stream launched K1 {launches} times")
+    for i, (out, single) in enumerate(zip(outs, singles)):
+        check(out.device.type == dev.type and torch.equal(out, single),
+              (i, "the grouped stream differs from the card's single-image output"))
+    log(f"batch: all {N_IMAGES} grouped outputs equal the single-image outputs")
+
+    rates = {}
+    for g in GROUPS:
+        med = warm_median_s(lambda: stream(datas, dev, group=g))
+        rates[g] = mp / med
+        log(f"batch: stream group={g}: median {med:.6f} s of {STREAM_RUNS} warm runs, "
+            f"{rates[g]:.3f} MP/s end to end")
+    log("batch: stream MP/s by group: "
+        + ", ".join(f"{g}: {r:.3f}" for g, r in rates.items()))
+
+    results = [scan(d) for d in datas]
+    geometry = results[0].geometry
+    transform, stacked, quants = group_wire(results, geometry)
+    stacked = torch.from_numpy(stacked).to(dev)
+    quants = torch.from_numpy(quants).to(dev)
+    group_ms = wall_ms(lambda: transform(stacked, quants, geometry, dev))
+    one_ms = wall_ms(lambda: transform(stacked[0], quants[0], geometry, dev))
+    log(f"batch: transform alone (payloads on the device), group of {N_IMAGES}: "
+        f"{group_ms:.6f} ms, {group_ms / N_IMAGES:.6f} ms per image; one image "
+        f"{one_ms:.6f} ms (host clock to a synchronised result, median of {TIMED_RUNS})")
+
+
+def phase_wires(records, sl, dev):
+    """The v1 wires on the card: arithmetic-coded streams, which the fused
+    scan declines, through the v1 plane-order wire; and the slice's
+    images under ``JPX_WIRE=1`` through the v1 MCU wire, grouped."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.ops import kernels
+    from jpeglibrary_tpu_torch.parallel.batch import scan
+
+    sources = sl["sources"][:N_ARITH]
+    arith = [jtt.encode_rgb(rgb, 75, arithmetic=True, device=dev) for rgb in sources]
+    cpu = []
+    for i, data in enumerate(arith):
+        res = scan(data)
+        check(res.packed_mcu2 is None and res.packed_mcu is None,
+              (i, "the arithmetic stream left the scan with a fused-scan payload"))
+        cpu.append(jtt.to_rgb8_device(res, device="cpu").numpy())
+    reset_counts()
+    outs = stream(arith, dev)
+    launches = kernels.dequantize_idct_shift.launches
+    log(f"wires: {N_ARITH} arithmetic-coded images ({sum(map(len, arith))} bytes) on the "
+        f"v1 plane-order wire: K1 launches {launches}")
+    check(launches == 3 * N_ARITH, f"K1 launches {launches}")
+    for i, (out, gold) in enumerate(zip(outs, cpu)):
+        got = out.cpu().numpy()
+        check_close(got, gold, f"wires: arithmetic image {i} vs CPU path")
+        fidelity = psnr(got, np.moveaxis(sources[i], -1, 0))
+        check(fidelity >= MIN_PSNR_DB, (i, fidelity))
+    med = warm_median_s(lambda: stream(arith, dev))
+    log(f"wires: arithmetic stream median {med:.6f} s of {STREAM_RUNS} warm runs, "
+        f"{N_ARITH * SIZE * SIZE / 1e6 / med:.3f} MP/s end to end")
+
+    saved = os.environ.get("JPX_WIRE")
+    os.environ["JPX_WIRE"] = "1"  # the JAX package's own switch to the v1 MCU wire
+    try:
+        res = scan(sl["datas"][0])
+        check(res.packed_mcu is not None and res.packed_mcu2 is None, "JPX_WIRE=1 gave no v1")
+        reset_counts()
+        outs = stream(sl["datas"], dev, group=N_IMAGES)
+        launches = kernels.dequantize_idct_shift.launches
+        log(f"wires: v1 MCU wire, group={N_IMAGES}: K1 launches {launches}")
+        check(launches == 3, f"K1 launches {launches}")
+        for i, (out, gold, single) in enumerate(zip(outs, sl["goldens"], sl["outs"])):
+            check_close(out.cpu().numpy(), gold, f"wires: v1 image {i} vs CPU golden")
+            check(torch.equal(out, single), (i, "the v1 wire differs from the v2 wire"))
+        med = warm_median_s(lambda: stream(sl["datas"], dev, group=N_IMAGES))
+        log(f"wires: v1 MCU wire grouped stream median {med:.6f} s of {STREAM_RUNS} warm "
+            f"runs, {N_IMAGES * SIZE * SIZE / 1e6 / med:.3f} MP/s end to end")
+    finally:
+        if saved is None:
+            del os.environ["JPX_WIRE"]
+        else:
+            os.environ["JPX_WIRE"] = saved
+
+
+def phase_thumbnails(records, sl, dev):
+    """The scaled decode at 1/8 (stream), 1/4 (grouped stream) and 1/2
+    (batch), each against the port's CPU path at that scale."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.ops import kernels
+    from jpeglibrary_tpu_torch.parallel.batch import scan
+
+    datas = sl["datas"]
+    mp = N_IMAGES * SIZE * SIZE / 1e6
+    results = [scan(d) for d in datas]
+    runs = (
+        ("k1_n1", 0.125, 3 * N_IMAGES, "decode_stream_rgb(scale=1/8)",
+         lambda: stream(datas, dev, scale=0.125)),
+        ("k1_n2", 0.25, 3, f"decode_stream_rgb(scale=1/4, group={N_IMAGES})",
+         lambda: stream(datas, dev, scale=0.25, group=N_IMAGES)),
+        ("k1_n4", 0.5, 3, "decode_batch_rgb(scale=1/2)",
+         lambda: jtt.decode_batch_rgb(datas, device=dev, scale=0.5)),
+    )
+    for key, scale, want_launches, label, run in runs:
+        side = -(-SIZE * int(8 * scale) // 8)
+        gold = [jtt.to_rgb8_device(r, device="cpu", scale=scale).numpy() for r in results]
+        reset_counts()
+        outs = run()
+        launches = kernels.dequantize_idct_shift.launches
+        log(f"thumbnails: {label}: K1 launches {launches}")
+        check(launches == want_launches, f"{label}: K1 launches {launches}")
+        records[key]["launches"] = launches
+        for i, out in enumerate(outs):
+            got = out.cpu().numpy() if torch.is_tensor(out) else np.moveaxis(out, -1, 0)
+            check(got.shape == (3, side, side), (label, i, got.shape))
+            check_close(got, gold[i], f"thumbnails: {label} image {i} vs CPU path",
+                        share=SCALED_SHARE)
+        med = warm_median_s(run)
+        log(f"thumbnails: {label} median {med:.6f} s of {STREAM_RUNS} warm runs, "
+            f"{mp / med:.3f} source MP/s end to end, output {side}x{side}")
 
 
 def phase_encode(record, sources, dev):
@@ -619,11 +889,14 @@ def main():
     phase_environment()
     phase_build()
     dev = torch.device("cuda")
-    record = phase_kernel(dev)
+    records = phase_kernel(dev)
     record_k2 = phase_kernel_fdct(dev)
-    sources = phase_slice(record, dev)
-    phase_encode(record_k2, sources, dev)
-    print(json.dumps({"kernels": [record, record_k2]}))
+    sl = phase_slice(records["k1"], dev)
+    phase_batch(records, sl, dev)
+    phase_wires(records, sl, dev)
+    phase_thumbnails(records, sl, dev)
+    phase_encode(record_k2, sl["sources"], dev)
+    print(json.dumps({"kernels": [*records.values(), record_k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

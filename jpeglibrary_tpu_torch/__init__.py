@@ -5,9 +5,11 @@ Hopper.
 The host layers (container parsing, the native entropy scanner and
 emitter, frame geometry, the encoder's tables) are the JAX package's
 own, imported as they are; they load no JAX. This package holds the
-device side: for the decode, the v2-wire densify, the K1 dequantize +
-IDCT kernel (``csrc/dequant_idct.cu``), upsampling and colour
-conversion, and the streaming pipeline; for the encode, padding, box
+device side: for the decode, the densify of every wire (v2 split-stream,
+v1 MCU, v1 plane-order, dense planes), the K1 dequantize + IDCT kernel
+(``csrc/dequant_idct.cu``, full size or reduced for thumbnails, one
+quant table per image of a batch), upsampling and colour conversion, and
+the batched and streaming pipelines; for the encode, padding, box
 subsampling and the K2 FDCT + quantize kernel (``csrc/fdct_quant.cu``).
 Every entry point takes an explicit ``device``; CPU tensors run the
 kernels' plain PyTorch versions, CUDA tensors the kernels.
@@ -15,10 +17,17 @@ kernels' plain PyTorch versions, CUDA tensors the kernels.
 
 from .models.decoder import device_inputs, to_rgb8_device
 from .models.encoder import encode, encode_gray, encode_rgb
-from .ops.pipeline import transform_mcu2
-from .parallel.batch import decode_stream_rgb
+from .ops.pipeline import (
+    transform_delta,
+    transform_dense,
+    transform_mcu,
+    transform_mcu2,
+    transform_to_rgb8,
+)
+from .parallel.batch import decode_batch_rgb, decode_stream_rgb
 
 __all__ = [
-    "decode_stream_rgb", "device_inputs", "encode", "encode_gray", "encode_rgb",
-    "to_rgb8_device", "transform_mcu2",
+    "decode_batch_rgb", "decode_stream_rgb", "device_inputs", "encode", "encode_gray",
+    "encode_rgb", "to_rgb8_device", "transform_delta", "transform_dense", "transform_mcu",
+    "transform_mcu2", "transform_to_rgb8",
 ]

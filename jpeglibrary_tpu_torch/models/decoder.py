@@ -1,10 +1,13 @@
 """Device RGB output of a decoded JPEG, in PyTorch.
 
 Port of ``jpeglibrary_tpu.models.decoder.DecodeResult.to_rgb8_device``
-(the v2-wire branch and its guards). The host decode stays the JAX
-package's own: ``JpegDecoder.decode(sparse_direct=True)`` returns a
-``DecodeResult`` whose numpy state (the v2 payload and the quant tables)
-this module carries onto the device.
+with every branch but the packer-less one (the port always builds the
+native packer): the v2 split-stream wire, the v1 MCU wire, the v1
+plane-order wire of ``prepack``, and the dense planes, at full size and
+at 1/2, 1/4 and 1/8. The host decode stays the JAX package's own:
+``JpegDecoder.decode(sparse_direct=True)`` returns a ``DecodeResult``
+whose numpy state (payloads, coefficient planes, quant tables) this
+module carries onto the device.
 """
 
 from __future__ import annotations
@@ -15,8 +18,24 @@ import numpy as np
 import torch
 
 from jpeglibrary_tpu.models.decoder import DecodeResult
+from jpeglibrary_tpu.parallel.batch import _stacked_quants
 
-from ..ops.pipeline import transform_mcu2
+from ..ops import _build
+from ..ops.pipeline import transform_delta, transform_dense, transform_mcu, transform_mcu2
+
+
+def scale_n_of(scale: float) -> int:
+    """The reduced block size n of ``scale`` = n/8, for scale in {1, 1/2,
+    1/4, 1/8}; raises for any other scale."""
+    scale_n = int(round(8 * scale))
+    if scale_n not in (1, 2, 4, 8) or abs(8 * scale - scale_n) > 1e-9:
+        raise ValueError("scale must be 1, 1/2, 1/4 or 1/8")
+    return scale_n
+
+
+def quant_tables(result: DecodeResult) -> np.ndarray:
+    """The result's ``[C, 64]`` int32 zig-zag quant tables, in component order."""
+    return _stacked_quants([result], result.geometry)[0]
 
 
 def device_inputs(result: DecodeResult, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -27,25 +46,36 @@ def device_inputs(result: DecodeResult, device) -> Tuple[torch.Tensor, torch.Ten
             "result carries no v2 payload; decode with "
             "JpegDecoder.decode(sparse_direct=True) and the native scanner"
         )
-    quants = np.stack(
-        [result.quant[c.component_index] for c in result.geometry.components]
-    ).astype(np.int32)
     payload = torch.from_numpy(result.packed_mcu2).to(device)
-    return payload, torch.from_numpy(quants).to(device)
+    return payload, torch.from_numpy(quant_tables(result)).to(device)
 
 
-def to_rgb8_device(result: DecodeResult, *, device, upsample: str = "duplicate",
-                   scale: float = 1.0) -> torch.Tensor:
-    """Planar ``[3, H, W]`` uint8 RGB on ``device`` for a baseline
-    YCbCr or grayscale result that carries a v2 payload.
+def delta_payload(result: DecodeResult) -> np.ndarray:
+    """The v1 plane-order payload of a result without a fused-scan payload:
+    the one ``prepack`` left, or the native packer's now."""
+    packed = getattr(result, "_packed", None)
+    if packed is None:
+        _build.load_scanner()  # the native packer; there is no numpy fallback
+        from jpeglibrary_tpu.native import scanner as native_scanner
 
-    Raises for what this port does not cover yet: lossless results,
-    other colour transforms, ``scale != 1``, ``upsample != "duplicate"``
-    and results without a v2 payload. ``upsample`` and ``scale`` keep
-    the JAX signature only: their defaults are the one setting ported,
-    and any other value raises."""
-    if scale != 1:
-        raise ValueError("only scale=1 is ported to the PyTorch device path")
+        planes = [result.coefficients[c.component_index] for c in result.geometry.components]
+        packed = native_scanner.pack_sparse(planes).reshape(-1)
+    return packed
+
+
+def to_rgb8_device(result: DecodeResult, *, device, sparse: bool = True,
+                   upsample: str = "duplicate", scale: float = 1.0) -> torch.Tensor:
+    """Planar ``[3, H', W']`` uint8 RGB on ``device`` for a YCbCr or
+    grayscale result, ``H' = ceil(H * scale)``.
+
+    The result's wire picks the transform, as in the JAX package: its v2
+    payload, else its v1 MCU payload, else (``sparse``) the v1
+    plane-order payload of its coefficient planes, else the dense planes.
+    ``scale`` in {1, 1/2, 1/4, 1/8} runs the reduced IDCT on the sparse
+    wires. Raises for lossless results, other colour transforms, other
+    scales, a scaled dense decode, and ``upsample="fancy"``, which is not
+    ported yet."""
+    scale_n = scale_n_of(scale)
     if upsample != "duplicate":
         raise ValueError("only duplicate upsampling is ported to the PyTorch device path")
     if result.samples is not None:
@@ -56,5 +86,16 @@ def to_rgb8_device(result: DecodeResult, *, device, upsample: str = "duplicate",
             f"this stream is {result.color_transform} — use the host "
             "to_rgb8()/to_cmyk8() writers."
         )
-    payload, quants = device_inputs(result, device)
-    return transform_mcu2(payload, quants, result.geometry, device)
+    geometry = result.geometry
+    quants = quant_tables(result)
+    if result.packed_mcu2 is not None:
+        return transform_mcu2(result.packed_mcu2, quants, geometry, device, scale_n=scale_n)
+    if result.packed_mcu is not None:
+        return transform_mcu(result.packed_mcu, quants, geometry, device, scale_n=scale_n)
+    if sparse:
+        return transform_delta(delta_payload(result), quants, geometry, device,
+                               scale_n=scale_n)
+    if scale_n != 8:
+        raise ValueError("scaled device decode rides the sparse paths")
+    planes = [result.coefficients[c.component_index] for c in geometry.components]
+    return transform_dense(planes, quants, geometry, device)

@@ -1,9 +1,10 @@
 """On-first-use nvcc build of the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file compiles into one shared library with a plain C
-interface, cached by a hash of the sources and flags under the package's
-``_build`` directory, and is loaded with
-ctypes, the way ``jpeglibrary_tpu.native.build`` builds the scanner.
+Every ``csrc/*.cu`` file compiles to an object, one nvcc process per
+source, all started together; the objects link into one shared library
+with a plain C interface, cached by a hash of the sources and flags under
+the package's ``_build`` directory, and loaded with ctypes, the way
+``jpeglibrary_tpu.native.build`` builds the scanner.
 Nothing here runs at import: the library is built by the first kernel
 launch, or by calling :func:`load_library`. A missing ``nvcc`` or a
 failed compile raises with the command line; there is no fallback.
@@ -25,7 +26,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills into the build log
 )
 _LOCK = threading.Lock()
@@ -33,7 +34,8 @@ _LIB: Optional[ctypes.CDLL] = None
 _K1_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,  # coeffs, quant
     ctypes.c_void_p, ctypes.c_void_p,  # matrix, out
-    ctypes.c_int64, ctypes.c_int,      # n_blocks, level_shift
+    ctypes.c_int64, ctypes.c_int64,    # n_blocks, blocks_per_table
+    ctypes.c_int, ctypes.c_int,        # out_width, level_shift
     ctypes.c_void_p,                   # cudaStream_t
 ]
 _K2_ARGS = [
@@ -72,7 +74,7 @@ def find_nvcc() -> str:
 def build_library() -> pathlib.Path:
     """Compile the kernels if needed and return the library's path.
 
-    The compiler's output (ptxas register and shared-memory report) is
+    The compilers' output (ptxas register and shared-memory report) is
     kept beside the library with the suffix ``.log``."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -84,15 +86,30 @@ def build_library() -> pathlib.Path:
     so_path = out_dir / f"libjpxcuda-{h.hexdigest()[:16]}.so"
     if so_path.exists():
         return so_path
+    nvcc = find_nvcc()
     tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    so_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    objs = [so_path.with_name(f"{so_path.stem}-{src.stem}.{os.getpid()}.o") for src in sources]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [proc.communicate()[0] for proc in procs]  # waits for every compile
+    try:
+        for cmd, proc, out in zip(compiles, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n{out}")
+        linked = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        if linked.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {linked.returncode}: {' '.join(link)}\n"
+                f"{linked.stdout}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    so_path.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so_path)
     return so_path
 

@@ -2,10 +2,11 @@
 sample planes -> 8-bit output.
 
 Port of ``jpeglibrary_tpu/ops/decode_stage.py`` (the parts the serving
-decode runs). The integer ops are bit-exact against the numpy originals;
-:func:`dequantize_idct_shift` is the plain PyTorch version of the K1
-kernel (``ops/kernels.py``) and, like the Pallas kernel it mirrors, is
-within 1 sample LSB of the butterfly IDCT.
+decode runs, the scaled decode's reduced IDCT included). The integer ops
+are bit-exact against the numpy originals; :func:`dequantize_idct_shift`
+is the plain PyTorch version of the K1 kernel (``ops/kernels.py``) and,
+like the Pallas kernel and the XLA matvecs it mirrors, is within 1
+sample LSB of the butterfly IDCT and of the JAX scaled transform.
 """
 
 from __future__ import annotations
@@ -13,42 +14,53 @@ from __future__ import annotations
 import torch
 
 
-def dequantize_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
-                          level_shift: int, matrix: torch.Tensor) -> torch.Tensor:
-    """[..., 64] zig-zag coefficients + [64] zig-zag quant -> int32
-    samples [..., 8, 8].
+def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
+                          blocks_per_table: int, level_shift: int,
+                          matrix: torch.Tensor) -> torch.Tensor:
+    """[N, 64] zig-zag coefficients + [G, 64] zig-zag quant tables ->
+    int32 samples [N, n, n]; block t dequantizes with table
+    ``t // blocks_per_table``.
 
-    ``matrix`` is the [64, 64] fp32 folded un-zigzag + IDCT map
-    (``kernels.fused_transform_matrix``). The int32 product converts to
-    fp32 with one rounding, as ``fl(c) * fl(q)`` does in the kernels;
-    rounding is half to even (``torch.round``). On a CUDA tensor it
-    raises while TF32 matmuls are allowed: TF32 keeps a 10-bit mantissa
-    and breaks the 1-LSB contract, and the process-wide setting is the
-    caller's to change."""
+    ``matrix`` is the [64, n*n] fp32 folded map: at n = 8 un-zigzag +
+    IDCT (``kernels.fused_transform_matrix``), at n = 4, 2, 1 the reduced
+    IDCT of the scaled decode (``scaled_folded_matrix``). The int32
+    product converts to fp32 with one rounding, as ``fl(c) * fl(q)`` does
+    in the kernels; rounding is half to even (``torch.round``). On a CUDA
+    tensor it raises while TF32 matmuls are allowed: TF32 keeps a 10-bit
+    mantissa and breaks the 1-LSB contract, and the process-wide setting
+    is the caller's to change. This is the port of the JAX
+    ``dequantize_idct_shift_scaled`` and, over a batch of images, of the
+    vmapped K1."""
     if coeffs_zz.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "the plain K1 version needs full fp32 matmuls: set "
             "torch.backends.cuda.matmul.allow_tf32 = False"
         )
-    deq = (coeffs_zz.to(torch.int32) * quant_zz.to(torch.int32)).to(torch.float32)
-    pixels = deq.reshape(-1, 64) @ matrix
+    coeffs = coeffs_zz.reshape(-1, 64).to(torch.int32)
+    quants = quants_zz.reshape(-1, 64).to(torch.int32)
+    if coeffs.shape[0] > blocks_per_table:
+        table = torch.arange(coeffs.shape[0], device=coeffs.device) // blocks_per_table
+        quants = quants[table]
+    deq = (coeffs * quants).to(torch.float32)
+    pixels = deq @ matrix
     samples = torch.round(pixels).to(torch.int32) + level_shift
-    return samples.reshape(coeffs_zz.shape[:-1] + (8, 8))
+    n = int(round(matrix.shape[1] ** 0.5))
+    return samples.reshape(-1, n, n)
 
 
 def blocks_to_plane(samples: torch.Tensor) -> torch.Tensor:
-    """[Hb, Wb, 8, 8] -> [Hb*8, Wb*8]."""
-    hb, wb = samples.shape[0], samples.shape[1]
-    return samples.permute(0, 2, 1, 3).reshape(hb * 8, wb * 8)
+    """[..., Hb, Wb, n, n] -> [..., Hb*n, Wb*n]."""
+    *lead, hb, wb, n, _ = samples.shape
+    return samples.transpose(-3, -2).reshape(*lead, hb * n, wb * n)
 
 
 def upsample_duplicate(plane: torch.Tensor, hs: int, vs: int) -> torch.Tensor:
-    """Nearest-neighbour duplication upsample (each sample repeated
-    ``vs`` times down and ``hs`` times across)."""
+    """Nearest-neighbour duplication upsample of ``[..., H, W]`` planes
+    (each sample repeated ``vs`` times down and ``hs`` times across)."""
     if vs != 1:
-        plane = plane.repeat_interleave(vs, dim=0)
+        plane = plane.repeat_interleave(vs, dim=-2)
     if hs != 1:
-        plane = plane.repeat_interleave(hs, dim=1)
+        plane = plane.repeat_interleave(hs, dim=-1)
     return plane
 
 

@@ -10,7 +10,10 @@ per block:
     K[zz, 8*i+j]  = 0.125 * M[i, r(zz)] * M[j, c(zz)]
 
 where M is the 1-D AAN IDCT butterfly written as a matrix and (r, c) the
-natural position of zig-zag index zz.
+natural position of zig-zag index zz. The scaled decode (1/2, 1/4, 1/8)
+is the same product with the [64, n*n] reduced-IDCT matrix, which the
+JAX package ran as n*n XLA matvecs; and a batch of images runs as one
+launch with one quant table per image, where the JAX package vmapped K1.
 
 :func:`dequantize_idct_shift` launches the hand-written CUDA kernel
 (``csrc/dequant_idct.cu``) for a CUDA tensor, and takes the plain
@@ -31,11 +34,13 @@ from __future__ import annotations
 
 import functools
 import threading
+from typing import Optional
 
 import torch
 
 # The folded matrices are built with numpy; those modules import jax only
 # inside their Pallas and jit functions, never at import.
+from jpeglibrary_tpu.ops.decode_stage import scaled_folded_matrix
 from jpeglibrary_tpu.ops.encode_stage import fdct_zigzag_matrix
 from jpeglibrary_tpu.ops.pallas_kernels import fused_transform_matrix
 
@@ -43,51 +48,78 @@ from . import _build, decode_stage, encode_stage
 
 
 @functools.lru_cache(maxsize=16)
-def transform_matrix(device: torch.device) -> torch.Tensor:
-    """The folded matrix as a tensor on ``device`` (one copy per device)."""
-    return torch.from_numpy(fused_transform_matrix()).to(device)
+def transform_matrix(device: torch.device, n: int = 8) -> torch.Tensor:
+    """K1's folded [64, n*n] matrix as a tensor on ``device`` (one copy per
+    device and n): the full IDCT at n = 8, the scaled decode's reduced
+    IDCT at n = 4, 2, 1."""
+    if n == 8:
+        return torch.from_numpy(fused_transform_matrix()).to(device)
+    return torch.from_numpy(scaled_folded_matrix(n)).to(device)
 
 
 _COUNT_LOCK = threading.Lock()
 
 
-def dequantize_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
-                          level_shift: int) -> torch.Tensor:
-    """[..., 64] zig-zag int32 (or int16) coefficients + [64] int32
-    zig-zag quant -> int32 samples [..., 8, 8].
+def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
+                          level_shift: int, *, blocks_per_table: Optional[int] = None,
+                          scale_n: int = 8) -> torch.Tensor:
+    """[..., 64] zig-zag int32 (or int16) coefficients + int32 zig-zag
+    quant tables -> int32 samples [..., n, n], n = ``scale_n``.
+
+    ``quants_zz`` is one [64] table, or [G, 64] tables of which block t
+    (in the flattened order of the leading dimensions) takes row
+    ``t // blocks_per_table``: a batch of G images that each carry their
+    own tables runs as one launch. ``scale_n`` 4, 2 or 1 gives the
+    scaled decode's reduced blocks.
 
     ``dequantize_idct_shift.launches`` counts the CUDA kernel's launches."""
     if coeffs_zz.dtype not in (torch.int32, torch.int16):
         raise TypeError(f"coefficients must be int32 or int16, got {coeffs_zz.dtype}")
     if coeffs_zz.dim() < 1 or coeffs_zz.shape[-1] != 64:
         raise ValueError(f"coefficients must be [..., 64], got {tuple(coeffs_zz.shape)}")
-    if quant_zz.dtype != torch.int32 or tuple(quant_zz.shape) != (64,):
+    if (quants_zz.dtype != torch.int32 or quants_zz.dim() not in (1, 2)
+            or quants_zz.shape[-1] != 64):
         raise ValueError(
-            f"quant must be int32 [64], got {quant_zz.dtype} {tuple(quant_zz.shape)}"
+            f"quant must be int32 [64] or [G, 64], got {quants_zz.dtype} "
+            f"{tuple(quants_zz.shape)}"
         )
-    if quant_zz.device != coeffs_zz.device:
+    if quants_zz.device != coeffs_zz.device:
         raise ValueError(
-            f"quant on {quant_zz.device}, coefficients on {coeffs_zz.device}"
+            f"quant on {quants_zz.device}, coefficients on {coeffs_zz.device}"
+        )
+    if scale_n not in (8, 4, 2, 1):
+        raise ValueError(f"scale_n must be 8, 4, 2 or 1, got {scale_n}")
+    n_blocks = coeffs_zz.numel() // 64
+    n_tables = quants_zz.numel() // 64
+    if blocks_per_table is None:
+        if n_tables != 1:
+            raise ValueError(f"{n_tables} quant tables need blocks_per_table")
+        blocks_per_table = max(n_blocks, 1)
+    if blocks_per_table < 1 or n_tables * blocks_per_table < n_blocks:
+        raise ValueError(
+            f"{n_tables} tables of {blocks_per_table} blocks do not cover {n_blocks} blocks"
         )
     device = coeffs_zz.device
-    matrix = transform_matrix(device)
+    matrix = transform_matrix(device, scale_n)
+    shape = coeffs_zz.shape[:-1] + (scale_n, scale_n)
     if device.type == "cpu":
-        return decode_stage.dequantize_idct_shift(coeffs_zz, quant_zz, level_shift, matrix)
+        return decode_stage.dequantize_idct_shift(
+            coeffs_zz, quants_zz, blocks_per_table, level_shift, matrix).reshape(shape)
     if device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {device}")
-    if not (coeffs_zz.is_contiguous() and quant_zz.is_contiguous()):
+    if not (coeffs_zz.is_contiguous() and quants_zz.is_contiguous()):
         raise ValueError("coefficients and quant must be contiguous")
 
-    out = torch.empty(coeffs_zz.shape[:-1] + (8, 8), dtype=torch.int32, device=device)
-    n_blocks = out.numel() // 64
+    out = torch.empty(shape, dtype=torch.int32, device=device)
     if n_blocks == 0:
         return out
     lib = _build.load_library()
     fn = lib.jpx_dequant_idct_i32 if coeffs_zz.dtype == torch.int32 else lib.jpx_dequant_idct_i16
     with torch.cuda.device(device):
         err = fn(
-            coeffs_zz.data_ptr(), quant_zz.data_ptr(), matrix.data_ptr(), out.data_ptr(),
-            n_blocks, int(level_shift), torch.cuda.current_stream(device).cuda_stream,
+            coeffs_zz.data_ptr(), quants_zz.data_ptr(), matrix.data_ptr(), out.data_ptr(),
+            n_blocks, blocks_per_table, scale_n * scale_n, int(level_shift),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")

@@ -1,58 +1,189 @@
-"""Pipelined streaming decode onto a PyTorch device.
+"""Batched and pipelined streaming decode onto a PyTorch device.
 
-Port of ``jpeglibrary_tpu.parallel.batch.decode_stream_rgb`` (the
-per-image path, ``group=1``): host threads run the native entropy scan
-ahead while a device thread transforms, and results come back in input
-order.
+Port of ``jpeglibrary_tpu.parallel.batch``: ``decode_batch_rgb`` groups a
+batch by frame geometry and runs each group as one stacked transform;
+``decode_stream_rgb`` runs the host scan ahead on threads while device
+threads transform, image by image or in groups, and yields results in
+input order. The host stages (the scan, the grouping, the stacking of
+payloads and quant tables) are the JAX package's own, reused as they
+are; the stacked transforms are ``ops.pipeline``'s, which run each op
+once per group (one K1 launch per component).
 """
 
 from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from jpeglibrary_tpu.models.decoder import DecodeResult, JpegDecoder
+from jpeglibrary_tpu.parallel.batch import (
+    _device_color_ok,
+    _stack_payloads2,
+    _stacked_quants,
+    scan_images,
+)
 
-from ..models.decoder import to_rgb8_device
+from ..models.decoder import delta_payload, scale_n_of, to_rgb8_device
 from ..ops import _build
+from ..ops.pipeline import transform_delta, transform_mcu, transform_mcu2
 
 
 def scan(data: bytes) -> DecodeResult:
-    """Host stage: container walk + native entropy scan to the v2 wire."""
+    """Host stage of the stream: container walk + entropy scan, with the
+    sparse payload packed here (``prepack``) for streams the fused native
+    scan declines, so the device thread only uploads and transforms."""
     dec = JpegDecoder()
     dec.set_input(data)
     res = dec.decode(sparse_direct=True)
-    if res.packed_mcu2 is None:
-        raise ValueError("the native scanner gave no v2 payload for this stream")
+    res.prepack()  # a no-op when the fused scan produced the payload
     return res
 
 
-def decode_stream_rgb(datas, *, device, depth: int = 4, scan_workers: int = 2):
-    """Yield planar ``[3, H, W]`` uint8 RGB tensors on ``device``, in
+def group_wire(batch: Sequence[DecodeResult], geometry):
+    """The stacked inputs of one transform over a group of same-geometry
+    images: ``(transform, wire, quants)`` with their v2 payloads
+    re-bucketed to one width (``transform_mcu2``), else their v1 MCU
+    payloads when all share one shape (``transform_mcu``); None when
+    neither fits. ``quants`` is ``[B, C, 64]``, each image's own tables."""
+    stacked = _stack_payloads2(batch, geometry)
+    transform = transform_mcu2
+    if stacked is None and all(r.packed_mcu is not None for r in batch) \
+            and len({r.packed_mcu.shape for r in batch}) == 1:
+        stacked = np.stack([r.packed_mcu for r in batch])
+        transform = transform_mcu
+    if stacked is None:
+        return None
+    return transform, stacked, _stacked_quants(batch, geometry)
+
+
+def _host_rgb(res: DecodeResult, scale_n: int) -> np.ndarray:
+    """``[H', W', 3]`` uint8 from the host writers, as the JAX batch takes
+    them for lossless and for RGB-coded or CMYK streams."""
+    if scale_n != 8 and res.samples is None and res.color_transform == "rgb":
+        return res.to_rgb8_scaled(scale_n / 8)
+    rgb = res.to_rgb8()
+    if scale_n != 8:
+        rgb = rgb[:: 8 // scale_n, :: 8 // scale_n]
+    return rgb
+
+
+def decode_batch_rgb(datas: Sequence[bytes], *, device, mesh=None,
+                     max_workers: Optional[int] = None,
+                     scale: float = 1.0) -> List[np.ndarray]:
+    """Decode a batch of JPEGs to ``[H', W', 3]`` uint8 RGB numpy arrays,
+    in input order.
+
+    Images of one frame geometry transform as one stacked call on
+    ``device``: their v2 payloads re-bucketed to one width, else their v1
+    MCU payloads when all share one shape, else their v1 plane-order
+    payloads padded to one width; each group comes back in one download.
+    Lossless images and RGB-coded, CMYK or YCCK streams take the host
+    writers. ``scale`` in {1, 1/2, 1/4, 1/8} runs the reduced IDCT (host
+    images are subsampled or scaled on the host). A ``mesh`` is not
+    ported yet and raises."""
+    if mesh is not None:
+        raise ValueError("decode_batch_rgb over a mesh is not ported to PyTorch yet")
+    scale_n = scale_n_of(scale)
+    _build.load_scanner()
+    results = scan_images(datas, max_workers=max_workers)
+
+    groups: Dict[object, List[int]] = {}
+    for i, r in enumerate(results):
+        groups.setdefault(r.geometry, []).append(i)
+
+    out: List[Optional[np.ndarray]] = [None] * len(results)
+    for geometry, indices in groups.items():
+        on_device = []
+        for i in indices:
+            r = results[i]
+            if r.samples is not None or not _device_color_ok(r):
+                out[i] = _host_rgb(r, scale_n)
+            else:
+                on_device.append(i)
+        if not on_device:
+            continue
+        batch = [results[i] for i in on_device]
+        wire = group_wire(batch, geometry)
+        if wire is None:
+            packs = [delta_payload(r) for r in batch]
+            stacked = np.zeros((len(packs), max(p.shape[0] for p in packs)), dtype=np.int16)
+            for j, p in enumerate(packs):
+                stacked[j, : p.shape[0]] = p  # (0, 0) padding adds zero
+            wire = transform_delta, stacked, _stacked_quants(batch, geometry)
+        transform, stacked, quants = wire
+        rgb = transform(stacked, quants, geometry, device, scale_n=scale_n)
+        rgb = rgb.permute(0, 2, 3, 1).contiguous().cpu().numpy()  # planar -> [B, H, W, 3]
+        for j, i in enumerate(on_device):
+            out[i] = rgb[j]
+    return out
+
+
+def decode_stream_rgb(datas, *, device, depth: int = 4, scan_workers: int = 2,
+                      device_workers: int = 1, group: int = 1, scale: float = 1.0):
+    """Yield planar ``[3, H', W']`` uint8 RGB tensors on ``device``, in
     input order, while ``scan_workers`` host threads scan ahead.
 
-    One device thread runs the upload and transform and waits for each
-    image's work on the current CUDA stream to finish, so ``depth``
-    bounds the images in flight on the device as well as on the host.
-    The native scanner is built (or its build fails) before the first
-    image, so no image falls back to the Python scanner."""
+    ``device_workers`` threads upload and transform; each enqueues on the
+    CUDA stream current in its thread and waits for that work before it
+    hands its images on, so ``depth`` (at least ``device_workers``)
+    bounds the groups in flight on the device as well as on the host.
+    ``group`` > 1 runs up to ``group`` consecutive images of one geometry
+    as one stacked transform: their v2 payloads, else their v1 MCU
+    payloads of one shape, else image by image. ``scale`` in {1, 1/2,
+    1/4, 1/8} runs the reduced IDCT. Lossless images are decoded on the
+    host and handed back on ``device`` like the rest. RGB-coded and CMYK
+    streams raise, as ``to_rgb8_device`` does. The native scanner is built
+    (or its build fails) before the first image, so no image falls back
+    to the Python scanner."""
+    scale_n = scale_n_of(scale)
     _build.load_scanner()
     device = torch.device(device)
 
-    def transform(scan_fut):
-        rgb = to_rgb8_device(scan_fut.result(), device=device)
+    def one_rgb(res):
+        if res.samples is not None:
+            rgb = np.moveaxis(_host_rgb(res, scale_n), -1, 0)
+            return torch.from_numpy(np.ascontiguousarray(rgb)).to(device)
+        return to_rgb8_device(res, device=device, scale=scale)
+
+    def transform_group(scan_futs):
+        ress = [f.result() for f in scan_futs]
+        outs = None
+        # The stacked transforms apply the YCbCr matrix; RGB-coded and CMYK
+        # streams go image by image, where to_rgb8_device raises for them.
+        if (len(ress) > 1 and all(_device_color_ok(r) for r in ress)
+                and len({r.geometry for r in ress}) == 1):
+            wire = group_wire(ress, ress[0].geometry)
+            if wire is not None:
+                transform, stacked, quants = wire
+                outs = list(transform(stacked, quants, ress[0].geometry, device,
+                                      scale_n=scale_n))
+        if outs is None:
+            outs = [one_rgb(r) for r in ress]
         if device.type == "cuda":
             torch.cuda.current_stream(device).synchronize()
-        return rgb
+        return outs
 
     with ThreadPoolExecutor(max_workers=scan_workers) as scan_pool, \
-            ThreadPoolExecutor(max_workers=1) as device_pool:
+            ThreadPoolExecutor(max_workers=device_workers) as device_pool:
         inflight = deque()
+        pending = []
+
+        def flush():
+            if pending:
+                inflight.append(device_pool.submit(transform_group, list(pending)))
+                pending.clear()
+
+        bound = max(depth, device_workers)
         for data in datas:
-            inflight.append(device_pool.submit(transform, scan_pool.submit(scan, data)))
-            while len(inflight) > depth:
-                yield inflight.popleft().result()
+            pending.append(scan_pool.submit(scan, data))
+            if len(pending) >= max(1, group):
+                flush()
+            while len(inflight) > bound:
+                yield from inflight.popleft().result()
+        flush()
         while inflight:
-            yield inflight.popleft().result()
+            yield from inflight.popleft().result()

@@ -73,6 +73,39 @@ def test_cpu_golden_matches_host_decode(smoke):
     assert smoke.psnr(got, np.moveaxis(rgb, -1, 0)) >= smoke.MIN_PSNR_DB
 
 
+def test_encoder_streams_take_v1_wire_when_pinned(smoke, monkeypatch):
+    """chip_smoke.py's wire phase pins the v1 MCU wire with ``JPX_WIRE=1``:
+    its streams then carry a v1 MCU payload, which the port's CPU path
+    decodes to the v2 wire's very image."""
+    data = smoke.encode_420(smoke.synth_image(4, 128), 75)
+    v2 = jtt.to_rgb8_device(jt.decode(data, sparse_direct=True), device="cpu")
+    monkeypatch.setenv("JPX_WIRE", "1")
+    res = jt.decode(data, sparse_direct=True)
+    assert res.packed_mcu is not None and res.packed_mcu2 is None
+    assert torch.equal(jtt.to_rgb8_device(res, device="cpu"), v2)
+    outs = list(jtt.decode_stream_rgb([data, data], device="cpu", group=2))
+    assert all(torch.equal(o, v2) for o in outs)
+
+
+def test_arithmetic_encode_lands_on_delta_wire(smoke):
+    """chip_smoke.py's arithmetic streams come from the port's own encode;
+    the fused scan declines them, so after the scan worker's ``prepack``
+    they ride the v1 plane-order wire, within the contract of the host
+    decode."""
+    from jpeglibrary_tpu_torch.parallel.batch import scan
+
+    rgb = smoke.synth_image(5, 128)
+    data = jtt.encode_rgb(rgb, 75, arithmetic=True, device="cpu")
+    res = scan(data)
+    assert res.packed_mcu2 is None and res.packed_mcu is None
+    assert getattr(res, "_packed", None) is not None
+    got = jtt.to_rgb8_device(res, device="cpu").numpy()
+    want = np.moveaxis(jt.decode(data).to_rgb8(), -1, 0)
+    d = np.abs(got.astype(np.int64) - want)
+    assert d.max() <= 2 and (d > 0).sum() <= d.size * 1e-4, (d.max(), (d > 0).sum())
+    assert smoke.psnr(got, np.moveaxis(rgb, -1, 0)) >= smoke.MIN_PSNR_DB
+
+
 def test_exits_nonzero_without_cuda():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=env,

@@ -28,6 +28,12 @@ def test_cpu_slice_loads_neither_jax_nor_pil():
         "data = jt.encode_rgb(rgb, 75)\n"
         "out = list(jtt.decode_stream_rgb([data, data], device='cpu'))\n"
         "assert [tuple(o.shape) for o in out] == [(3, 48, 64)] * 2\n"
+        "arith = jt.encode_rgb(rgb, 75, arithmetic=True)\n"
+        "out = list(jtt.decode_stream_rgb([data, data, arith], device='cpu', group=2,\n"
+        "                                 scale=0.5))\n"
+        "assert [tuple(o.shape) for o in out] == [(3, 24, 32)] * 3\n"
+        "out = jtt.decode_batch_rgb([data, arith], device='cpu', scale=0.25)\n"
+        "assert [o.shape for o in out] == [(12, 16, 3)] * 2\n"
         "ours = jtt.encode_rgb(rgb, 75, device='cpu')\n"
         "assert jt.decode(ours).to_rgb8().shape == (48, 64, 3)\n"
         "print(sorted(m for m in ('jax', 'jaxlib', 'PIL') if m in sys.modules))\n"

@@ -34,7 +34,7 @@ def _inputs(n_blocks, seed=5):
 def _plain(coeffs, quant, level_shift):
     matrix = torch.from_numpy(kernels.fused_transform_matrix())
     return decode_stage.dequantize_idct_shift(
-        torch.from_numpy(coeffs), torch.from_numpy(quant), level_shift, matrix
+        torch.from_numpy(coeffs), torch.from_numpy(quant), len(coeffs), level_shift, matrix
     ).numpy()
 
 

@@ -67,11 +67,11 @@ def test_clamp_to_uint8_bit_exact():
 
 
 def _assert_densify_matches(result):
-    got = pipeline.densify_mcu2(torch.from_numpy(result.packed_mcu2), result.geometry)
+    got = pipeline.densify_mcu2(torch.from_numpy(result.packed_mcu2)[None], result.geometry)
     want = result._densify_packed2()
     for plane, cg in zip(got, result.geometry.components):
         assert plane.dtype == torch.int32
-        np.testing.assert_array_equal(plane.numpy(), want[cg.component_index])
+        np.testing.assert_array_equal(plane[0].numpy(), want[cg.component_index])
 
 
 def _nb(geometry):

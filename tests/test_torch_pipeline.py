@@ -86,18 +86,25 @@ def test_guard_lossless():
         jtt.to_rgb8_device(res, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [{"scale": 0.5}, {"upsample": "fancy"}])
+@pytest.mark.parametrize("kwargs", [{"scale": 0.3}, {"upsample": "fancy"}])
 def test_guard_unported_options(kwargs):
+    """An invalid scale raises, as in the JAX package; fancy upsampling is
+    not ported yet and raises."""
     res = jt.decode(CASES["420"](), sparse_direct=True)
     with pytest.raises(ValueError):
         jtt.to_rgb8_device(res, device="cpu", **kwargs)
 
 
 def test_guard_no_v2_payload():
-    res = jt.decode(CASES["420"]())  # staged decode: dense planes, no payload
-    assert res.packed_mcu2 is None
-    with pytest.raises(ValueError, match="v2 payload"):
-        jtt.to_rgb8_device(res, device="cpu")
+    """A result without a fused-scan payload (the staged decode's dense
+    planes) rides the v1 plane-order wire, within the contract of the JAX
+    device path and of the host golden."""
+    res = jt.decode(CASES["420"]())
+    assert res.packed_mcu2 is None and res.packed_mcu is None
+    got = jtt.to_rgb8_device(res, device="cpu")
+    assert tuple(got.shape) == (3, res.height, res.width)
+    _assert_contract(got.numpy(), np.asarray(res.to_rgb8_device()))
+    _assert_contract(got.numpy(), np.moveaxis(res.to_rgb8(), -1, 0))
 
 
 def test_guard_cmyk_stream():
