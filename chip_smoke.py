@@ -14,16 +14,22 @@ images through ``encode_rgb(..., device="cuda")``. In order:
 3. kernels, each against its plain PyTorch version at the main paths'
    shapes (65,536 and 16,384 blocks: the Y plane and each chroma plane of
    a 2048x2048 4:2:0 image), at level shifts 128 and 2048, max |diff|
-   <= 1 on <= 1e-3 of the values, with both device times (CUDA events,
-   median of runs in turns):
+   <= 1 on <= 1e-3 of the values:
    K1 (dequantize + IDCT) from int32 and int16 coefficients, and its
    variants: 8 quant tables over 8 x 65,536 blocks (a group of 8 Y
-   planes) and over 8 x 65,500 (CTAs that straddle two tables), and the
+   planes) and over 8 x 65,500 (tiles that straddle two tables), and the
    reduced outputs n = 4, 2, 1 of the thumbnail decode (at n = 2 the
    folded sums sit near .5 ties on about one sample in eight, so there
    every differing sample must be such a near tie);
    K2 (FDCT + quantize) from int32 and uint8 sample planes, plus exact
-   .5 ties (constant blocks, q = 16) that must round half to even;
+   .5 ties (constant blocks, q = 16) that must round half to even.
+   Each shape is timed against its plain version and against one
+   ``torch.matmul`` of the same product (the library yardstick, never
+   called by the port): with CUDA events around each call (launch gaps
+   included) and as kernel time from
+   ``torch.profiler``, warm and, for K1, with the L2 flushed by a 256 MB
+   write before each call; each against its bound (bytes over 3.35 TB/s
+   or fp32 operations over 67 TFLOP/s, whichever is larger);
 4. decode slice: the images are synthesised (a numpy gradient plus noise
    per seed) and encoded by the baseline encoder below; the stream
    decode is held against the port's CPU path (<= 2 RGB levels on <= 1e-4
@@ -58,7 +64,8 @@ images through ``encode_rgb(..., device="cuda")``. In order:
 Each phase sets the kernels' launch counts to 0 just before the path it
 drives and reads them just after. Any failure raises and the script
 exits non-zero. The line before the last is a JSON record of the
-kernels (K1, one entry per K1 variant, K2); the last line is
+kernels (K1, one entry per K1 variant, K2: launches on the main paths,
+kernel time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
 of this repo only the port, ``jpeglibrary_tpu_torch``.
@@ -99,6 +106,12 @@ GROUPS = (1, 2, 4, 8)
 MIN_PSNR_DB = 22.0  # the decode against its source image; q75 and the noise give ~24.6 dB
 SCALED_SHARE = 0.05  # the JAX package's scaled contract: <= 2 levels on < 5% of the values
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clocks
+FLUSH_BYTES = 256 << 20  # written between timed calls to empty the 50 MB L2
+# The bound of a kernel call: the larger of its bytes (each input read once,
+# each output written once) over the memory rate and its fp32 operations
+# over the CUDA cores' peak (an H100 SXM's published rates at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def log(*args):
@@ -116,7 +129,8 @@ def device_ms(*fns, runs=TIMED_RUNS, warmup=3):
     CUDA events, ``runs`` calls each. A spin kernel ahead of each start
     event keeps the card busy while the host enqueues the call, so the
     time excludes the host's launch cost (an idle card would wait for it
-    between the events)."""
+    between the events); the device's own gap before and after a launch,
+    about 5 us on the H100, stays in it."""
     for fn in fns:
         for _ in range(warmup):
             fn()
@@ -133,6 +147,34 @@ def device_ms(*fns, runs=TIMED_RUNS, warmup=3):
             end.synchronize()
             ts.append(start.elapsed_time(end))
     return [statistics.median(ts) for ts in times]
+
+
+def kernel_ms(*fns, runs=TIMED_RUNS, rounds=5, flush=None):
+    """Mean device milliseconds per call of each of ``fns``: the summed
+    durations of the kernels the call launched, as ``torch.profiler``
+    (CUPTI) records them, so without the launch gaps that the events of
+    :func:`device_ms` include. Timed in ``rounds`` turns of ``runs /
+    rounds`` calls each. With ``flush``, each call is preceded by a write of
+    all of it (its fill kernels are not counted), so the call finds its
+    inputs in device memory and not in the L2."""
+    activity = [torch.profiler.ProfilerActivity.CUDA]
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    per = runs // rounds
+    totals = [0.0] * len(fns)
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            with torch.profiler.profile(activities=activity) as prof:
+                for _ in range(per):
+                    if flush is not None:
+                        flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            totals[i] += sum(e.self_device_time_total for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA
+                             and "Fill" not in e.key and "Memset" not in e.key)
+    return [total / (per * rounds) / 1e3 for total in totals]  # profiler microseconds
 
 
 def wall_ms(fn, runs=TIMED_RUNS, warmup=3):
@@ -235,15 +277,44 @@ def phase_build():
         log(f"  {ln.strip()}")
 
 
+def bound(n_bytes, n_ops):
+    """(bound ms, what bounds it) for a call that moves ``n_bytes`` and
+    does ``n_ops`` fp32 operations."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def k1_bound(n_blocks, n_tables, n, itemsize):
+    """K1's bound: coefficients, tables and matrix in, samples out; per
+    coefficient one dequant multiply and one FMA (2 operations) per output
+    column, per sample one rounding add."""
+    w = n * n
+    n_bytes = n_blocks * 64 * itemsize + n_tables * 64 * 4 + 64 * w * 4 + n_blocks * w * 4
+    return bound(n_bytes, n_blocks * 64 * (1 + 2 * w) + n_blocks * w)
+
+
+def k1_record(key, label, k_ms, p_ms, lib_ms, bound_ms, bound_by, max_abs):
+    return {"name": "dequantize_idct_shift" if key == "k1" else f"dequantize_idct_shift[{label}]",
+            "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES, "launches": None,
+            "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
 def phase_kernel(dev):
     """K1 and its variants against the plain version on the card; returns
-    the records, keyed "k1" and by K1_VARIANTS."""
+    the records, keyed "k1" and by K1_VARIANTS. Each shape is timed warm
+    (its inputs in the L2, as the path finds them after the densify) and
+    with the L2 flushed; the records carry the flushed times. The library
+    yardstick is one ``torch.matmul`` of the pre-dequantized fp32 blocks by
+    the same matrix (full fp32, the product cuBLAS computes)."""
     from jpeglibrary_tpu_torch.ops import decode_stage, kernels
 
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     matrix = kernels.transform_matrix(dev)
     rng = np.random.default_rng(1234)
     worst = 0
-    timing = {}
+    records = {}
     for n in KERNEL_BLOCKS:
         coeffs16 = torch.from_numpy(
             rng.integers(-1024, 1024, size=(n, 64)).astype(np.int16)).to(dev)
@@ -263,18 +334,30 @@ def phase_kernel(dev):
                     f"max |diff| {max_abs}, differing share {share:.3e}")
                 check(max_abs <= 1 and share <= 1e-3, (n, c.dtype, ls, max_abs, share))
                 worst = max(worst, max_abs)
-        p_ms, k_ms = device_ms(
+        deq = (coeffs * quant).to(torch.float32)
+        fns = (
             lambda: decode_stage.dequantize_idct_shift(coeffs, quant, n, 128, matrix),
             lambda: kernels.dequantize_idct_shift(coeffs, quant, 128),
+            lambda: torch.matmul(deq, matrix),
+            lambda: kernels.dequantize_idct_shift(coeffs16, quant, 128),
         )
-        timing[n] = (k_ms, p_ms)
-        gbs = n * 64 * 8 / (k_ms * 1e-3) / 1e9
-        log(f"kernel: {n} blocks int32: K1 {k_ms:.6f} ms ({gbs:.1f} GB/s of 8 B per sample), "
-            f"plain {p_ms:.6f} ms (device time, median of {TIMED_RUNS} in turns)")
-    k_ms, p_ms = timing[KERNEL_BLOCKS[0]]
-    records = {"k1": {"name": "dequantize_idct_shift", "route": "cuda", "source": K1_SOURCE,
-                      "replaces": K1_REPLACES, "launches": None, "max_abs_err": worst,
-                      "ms": k_ms, "plain_ms": p_ms}}
+        p_ev, k_ev, lib_ev, k16_ev = device_ms(*fns)
+        log(f"kernel: K1 {n} blocks, warm, CUDA events around each call (launch gaps "
+            f"included): K1 {k_ev:.6f} ms, int16 input {k16_ev:.6f} ms, plain "
+            f"{p_ev:.6f} ms, torch.matmul {lib_ev:.6f} ms (median of {TIMED_RUNS} in turns)")
+        warm = kernel_ms(*fns)
+        cold = kernel_ms(*fns, flush=flush)
+        b_ms, b_by = k1_bound(n, 1, 8, 4)
+        b16_ms, _ = k1_bound(n, 1, 8, 2)
+        for what, (p_ms, k_ms, lib_ms, k16_ms) in (("warm", warm), ("L2 flushed", cold)):
+            log(f"kernel: K1 {n} blocks int32, {what}: K1 {k_ms:.6f} ms "
+                f"({b_ms / k_ms:.1%} of its {b_by} bound {b_ms:.6f} ms), plain {p_ms:.6f} ms, "
+                f"torch.matmul of the dequantized fp32 blocks {lib_ms:.6f} ms; int16 input "
+                f"{k16_ms:.6f} ms (bound {b16_ms:.6f} ms) (kernel time, mean of {TIMED_RUNS} "
+                "in turns)")
+        if n == KERNEL_BLOCKS[0]:
+            p_ms, k_ms, lib_ms, _ = cold
+            records["k1"] = k1_record("k1", "", k_ms, p_ms, lib_ms, b_ms, b_by, worst)
 
     for key, label, n_tables, per_table, n in K1_VARIANTS:
         # Full-size variants at the K1 check's magnitudes above; the reduced ones at a
@@ -287,6 +370,8 @@ def phase_kernel(dev):
         quants = torch.from_numpy(
             rng.integers(1, q_hi, size=(n_tables, 64)).astype(np.int32)).to(dev)
         matrix_n = kernels.transform_matrix(dev, n)
+        table = torch.arange(n_blocks, device=dev) // per_table
+        deq = (coeffs * quants[table]).to(torch.float32)
 
         def plain():
             return decode_stage.dequantize_idct_shift(coeffs, quants, per_table, 128, matrix_n)
@@ -303,7 +388,6 @@ def phase_kernel(dev):
         max_abs = int(diff.max())
         share = float((diff > 0).double().mean())
         if n == 2:
-            table = torch.arange(n_blocks, device=dev) // per_table
             exact = (coeffs.double() * quants[table].double()) @ matrix_n.double()
             near_tie = ((exact - exact.floor() - 0.5).abs() < 1e-3).reshape(got.shape)
             off_tie = int((diff > 0)[~near_tie].sum())
@@ -312,18 +396,35 @@ def phase_kernel(dev):
             check(max_abs <= 1 and off_tie == 0, (label, max_abs, off_tie))
         else:
             check(max_abs <= 1 and share <= 1e-3, (label, max_abs, share))
-        p_ms, k_ms = device_ms(plain, kernel)
-        log(f"kernel: K1 {label}, {n_tables} x {per_table} blocks -> [{n_blocks}, {n}, {n}]: "
-            f"max |diff| {max_abs}, differing share {share:.3e}; K1 {k_ms:.6f} ms, plain "
-            f"{p_ms:.6f} ms (device time, median of {TIMED_RUNS} in turns)")
+        fns = (plain, kernel, lambda: torch.matmul(deq, matrix_n))
+        p_ev, k_ev, lib_ev = device_ms(*fns)
+        warm = kernel_ms(*fns)
+        cold = kernel_ms(*fns, flush=flush)
+        b_ms, b_by = k1_bound(n_blocks, n_tables, n, 4)
+        log(f"kernel: K1 {label}, warm, CUDA events around each call: K1 {k_ev:.6f} ms, "
+            f"plain {p_ev:.6f} ms, torch.matmul {lib_ev:.6f} ms (median of {TIMED_RUNS})")
+        for what, (p_ms, k_ms, lib_ms) in (("warm", warm), ("L2 flushed", cold)):
+            log(f"kernel: K1 {label}, {n_tables} x {per_table} blocks -> [{n_blocks}, {n}, {n}], "
+                f"{what}: K1 {k_ms:.6f} ms ({b_ms / k_ms:.1%} of its {b_by} bound "
+                f"{b_ms:.6f} ms), plain {p_ms:.6f} ms, torch.matmul {lib_ms:.6f} ms "
+                f"(kernel time, mean of {TIMED_RUNS} in turns)")
+        log(f"kernel: K1 {label}: max |diff| {max_abs}, differing share {share:.3e}")
         if key is None:  # the straddling layout: a check on the "8 tables" record
             records["k1_tables"]["max_abs_err"] = max(records["k1_tables"]["max_abs_err"],
                                                       max_abs)
             continue
-        records[key] = {"name": f"dequantize_idct_shift[{label}]", "route": "cuda",
-                        "source": K1_SOURCE, "replaces": K1_REPLACES, "launches": None,
-                        "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms}
+        p_ms, k_ms, lib_ms = cold
+        records[key] = k1_record(key, label, k_ms, p_ms, lib_ms, b_ms, b_by, max_abs)
+    del flush
     return records
+
+
+def k2_bound(n_blocks, itemsize):
+    """K2's bound: samples, table and matrix in, int16 coefficients out;
+    per sample a level-shift subtract and per coefficient 64 FMAs (2
+    operations each) and a divide."""
+    n_bytes = n_blocks * 64 * (itemsize + 2) + 64 * 4 + 64 * 64 * 4
+    return bound(n_bytes, n_blocks * 64 * (1 + 2 * 64 + 1))
 
 
 def phase_kernel_fdct(dev):
@@ -354,16 +455,28 @@ def phase_kernel_fdct(dev):
                     f"max |diff| {max_abs}, differing share {share:.3e}")
                 check(max_abs <= 1 and share <= 1e-3, (n, p.dtype, ls, max_abs, share))
                 worst = max(worst, max_abs)
-        p_ms, k_ms, u_ms = device_ms(
+        # The library yardstick: one torch.matmul of the level-shifted blocks,
+        # cut from the plane beforehand, by the same matrix.
+        blocks = (i32 - 128).to(torch.float32).reshape(side // 8, 8, side // 8, 8)
+        blocks = blocks.permute(0, 2, 1, 3).reshape(-1, 64).contiguous()
+        fns = (
             lambda: encode_stage.fdct_quantize(i32, quant, 128, matrix),
             lambda: kernels.fdct_quantize(i32, quant, 128),
             lambda: kernels.fdct_quantize(u8, quant, 128),
+            lambda: torch.matmul(blocks, matrix),
         )
-        timing[n] = (k_ms, p_ms)
+        p_ev, k_ev, u_ev, lib_ev = device_ms(*fns)
+        p_ms, k_ms, u_ms, lib_ms = kernel_ms(*fns)
+        b_ms, b_by = k2_bound(n, 4)
+        timing[n] = (k_ms, p_ms, lib_ms, b_ms, b_by)
         gbs = n * 64 * 6 / (k_ms * 1e-3) / 1e9
-        log(f"kernel: {n} blocks: K2 int32 {k_ms:.6f} ms ({gbs:.1f} GB/s of 6 B per sample), "
-            f"K2 uint8 {u_ms:.6f} ms, plain int32 {p_ms:.6f} ms "
-            f"(device time, median of {TIMED_RUNS} in turns)")
+        log(f"kernel: {n} blocks, CUDA events around each call (launch gaps included): K2 int32 "
+            f"{k_ev:.6f} ms, K2 uint8 {u_ev:.6f} ms, plain {p_ev:.6f} ms, torch.matmul "
+            f"{lib_ev:.6f} ms (median of {TIMED_RUNS} in turns)")
+        log(f"kernel: {n} blocks: K2 int32 {k_ms:.6f} ms ({gbs:.1f} GB/s of 6 B per sample; "
+            f"{b_ms / k_ms:.1%} of its {b_by} bound {b_ms:.6f} ms), K2 uint8 {u_ms:.6f} ms, "
+            f"plain int32 {p_ms:.6f} ms, torch.matmul of the pre-cut fp32 blocks "
+            f"{lib_ms:.6f} ms (kernel time, mean of {TIMED_RUNS} in turns)")
 
     # Exact ties: a constant block of ls + s has DC 8s exactly, so q = 16
     # gives s/2, a .5 for odd s, which must round half to even.
@@ -379,10 +492,11 @@ def phase_kernel_fdct(dev):
         check(torch.equal(got, plain), ("ties vs plain", ls, dtype))
     log("kernel: K2 exact ties (128 odd DC values of s/2, uint8 and int32, level shifts "
         "128 and 2048): all round half to even, equal to the plain version")
-    k_ms, p_ms = timing[KERNEL_BLOCKS[0]]
+    k_ms, p_ms, lib_ms, b_ms, b_by = timing[KERNEL_BLOCKS[0]]
     return {"name": "fdct_quantize", "route": "cuda", "source": K2_SOURCE,
             "replaces": K2_REPLACES, "launches": None, "max_abs_err": worst,
-            "ms": k_ms, "plain_ms": p_ms}
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def synth_image(seed, size):

@@ -4,7 +4,8 @@ Port of ``jpeglibrary_tpu.models.decoder.DecodeResult.to_rgb8_device``
 with every branch but the packer-less one (the port always builds the
 native packer): the v2 split-stream wire, the v1 MCU wire, the v1
 plane-order wire of ``prepack``, and the dense planes, at full size and
-at 1/2, 1/4 and 1/8. The host decode stays the JAX package's own:
+at 1/2, 1/4 and 1/8. The host decode is the port's copy of the JAX
+package's (``host/models/decoder.py``):
 ``JpegDecoder.decode(sparse_direct=True)`` returns a ``DecodeResult``
 whose numpy state (payloads, coefficient planes, quant tables) this
 module carries onto the device.
@@ -17,9 +18,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from jpeglibrary_tpu.models.decoder import DecodeResult
-from jpeglibrary_tpu.parallel.batch import _stacked_quants
-
+from ..host.models.decoder import DecodeResult
+from ..host.parallel.batch import _stacked_quants
 from ..ops import _build
 from ..ops.pipeline import transform_delta, transform_dense, transform_mcu, transform_mcu2
 
@@ -56,7 +56,7 @@ def delta_payload(result: DecodeResult) -> np.ndarray:
     packed = getattr(result, "_packed", None)
     if packed is None:
         _build.load_scanner()  # the native packer; there is no numpy fallback
-        from jpeglibrary_tpu.native import scanner as native_scanner
+        from ..host.native import scanner as native_scanner
 
         planes = [result.coefficients[c.component_index] for c in result.geometry.components]
         packed = native_scanner.pack_sparse(planes).reshape(-1)

@@ -3,8 +3,9 @@ with the sample transform on a PyTorch device.
 
 Port of the device branch of ``jpeglibrary_tpu.models.encoder.JpegEncoder.encode``
 (``xp=jnp``) and of its entry points ``encode_rgb`` and ``encode_gray``.
-The host layers stay the JAX package's own: RGB input is converted on
-the host with the native ``rgb_to_ycbcr``, as that branch converts it;
+The host layers are the port's copy of the JAX package's (``host/``):
+RGB input is converted on the host with the native ``rgb_to_ycbcr``, as
+that branch converts it;
 ``ops.encode_stage.forward`` computes the coefficient planes on the
 device; and a shallow copy of the encoder, given those planes through
 ``set_coefficient_planes``, orders them into MCUs and runs the Huffman
@@ -20,15 +21,10 @@ from typing import List
 import numpy as np
 import torch
 
-from jpeglibrary_tpu.models.encoder import (
-    JpegEncodeError,
-    JpegEncoder,
-    _configure_rgb_encoder,
-)
-from jpeglibrary_tpu.models.geometry import ceil_div
-from jpeglibrary_tpu.syntax import huffman_standard
-from jpeglibrary_tpu.syntax.quantization import scale_by_quality, standard_luminance_table
-
+from ..host.models.encoder import JpegEncodeError, JpegEncoder, _configure_rgb_encoder
+from ..host.models.geometry import ceil_div
+from ..host.syntax import huffman_standard
+from ..host.syntax.quantization import scale_by_quality, standard_luminance_table
 from ..ops import _build, encode_stage
 
 #: Inputs the device branch does not take through ``jitted_forward``.
@@ -77,7 +73,7 @@ def sample_planes(encoder: JpegEncoder) -> List[np.ndarray]:
     if planes is None:
         if encoder._input_rgb is None:
             raise JpegEncodeError("Input is not specified.")
-        from jpeglibrary_tpu.native import scanner as native_scanner
+        from ..host.native import scanner as native_scanner
 
         _build.load_scanner()
         planes = native_scanner.rgb_to_ycbcr(encoder._input_rgb)

@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` file compiles to an object, one nvcc process per
 source, all started together; the objects link into one shared library
 with a plain C interface, cached by a hash of the sources and flags under
 the package's ``_build`` directory, and loaded with ctypes, the way
-``jpeglibrary_tpu.native.build`` builds the scanner.
+``host.native.build`` builds the scanner.
 Nothing here runs at import: the library is built by the first kernel
 launch, or by calling :func:`load_library`. A missing ``nvcc`` or a
 failed compile raises with the command line; there is no fallback.
@@ -116,9 +116,9 @@ def build_library() -> pathlib.Path:
 
 def load_scanner() -> ctypes.CDLL:
     """Build (once per source hash, with g++) and load the native entropy
-    scanner of the reused host layers; raises if it cannot be built, so
-    no image falls back to the Python scanner."""
-    from jpeglibrary_tpu.native import build as native_build
+    scanner of the port's host layers (``host/native``); raises if it
+    cannot be built, so no image falls back to the Python scanner."""
+    from ..host.native import build as native_build
 
     return native_build.load_library()
 

@@ -18,12 +18,13 @@ launch with one quant table per image, where the JAX package vmapped K1.
 :func:`dequantize_idct_shift` launches the hand-written CUDA kernel
 (``csrc/dequant_idct.cu``) for a CUDA tensor, and takes the plain
 PyTorch version (``decode_stage.dequantize_idct_shift``) only for a CPU
-tensor. The Pallas wrapper padded to a 1024-block tile; the CUDA kernel
-masks its ragged edge and nothing is padded.
+tensor. The Pallas wrapper padded to a 1024-block tile; the CUDA kernel,
+a persistent grid that stages 128-block tiles asynchronously, masks its
+ragged edge and nothing is padded.
 
 K2, the encode transform: level shift + 2-D FDCT + zig-zag + quantize,
 ``rint(((s - level_shift) @ F) / q)`` with F the folded matrix of
-``jpeglibrary_tpu.ops.encode_stage.fdct_zigzag_matrix``. Port of the
+``host.ops.encode_stage.fdct_zigzag_matrix``. Port of the
 encode half of ``pallas_kernels.py``. :func:`fdct_quantize` launches
 ``csrc/fdct_quant.cu`` on a CUDA plane, which reads the [Hp, Wp] sample
 plane itself instead of pre-cut blocks, and takes the plain version
@@ -38,12 +39,8 @@ from typing import Optional
 
 import torch
 
-# The folded matrices are built with numpy; those modules import jax only
-# inside their Pallas and jit functions, never at import.
-from jpeglibrary_tpu.ops.decode_stage import scaled_folded_matrix
-from jpeglibrary_tpu.ops.encode_stage import fdct_zigzag_matrix
-from jpeglibrary_tpu.ops.pallas_kernels import fused_transform_matrix
-
+from ..host.ops.decode_stage import fused_transform_matrix, scaled_folded_matrix
+from ..host.ops.encode_stage import fdct_zigzag_matrix
 from . import _build, decode_stage, encode_stage
 
 
@@ -113,6 +110,12 @@ def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
     out = torch.empty(shape, dtype=torch.int32, device=device)
     if n_blocks == 0:
         return out
+    # The kernel copies and loads 16 bytes at a time; a view that starts
+    # off that alignment is copied to a fresh (aligned) allocation.
+    if coeffs_zz.data_ptr() % 16:
+        coeffs_zz = coeffs_zz.clone()
+    if quants_zz.data_ptr() % 16:
+        quants_zz = quants_zz.clone()
     lib = _build.load_library()
     fn = lib.jpx_dequant_idct_i32 if coeffs_zz.dtype == torch.int32 else lib.jpx_dequant_idct_i16
     with torch.cuda.device(device):

@@ -30,8 +30,7 @@ from typing import List, Sequence
 
 import torch
 
-from jpeglibrary_tpu.models.geometry import FrameGeometry
-
+from ..host.models.geometry import FrameGeometry
 from . import color, decode_stage, kernels
 
 

@@ -5,9 +5,10 @@ batch by frame geometry and runs each group as one stacked transform;
 ``decode_stream_rgb`` runs the host scan ahead on threads while device
 threads transform, image by image or in groups, and yields results in
 input order. The host stages (the scan, the grouping, the stacking of
-payloads and quant tables) are the JAX package's own, reused as they
-are; the stacked transforms are ``ops.pipeline``'s, which run each op
-once per group (one K1 launch per component).
+payloads and quant tables) are the port's copy of the JAX package's
+(``host/parallel/batch.py``); the stacked transforms are
+``ops.pipeline``'s, which run each op once per group (one K1 launch per
+component).
 """
 
 from __future__ import annotations
@@ -19,14 +20,14 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from jpeglibrary_tpu.models.decoder import DecodeResult, JpegDecoder
-from jpeglibrary_tpu.parallel.batch import (
+from ..host.models.decoder import DecodeResult, JpegDecoder
+from ..host.parallel.batch import (
     _device_color_ok,
+    _group_key,
     _stack_payloads2,
     _stacked_quants,
     scan_images,
 )
-
 from ..models.decoder import delta_payload, scale_n_of, to_rgb8_device
 from ..ops import _build
 from ..ops.pipeline import transform_delta, transform_mcu, transform_mcu2
@@ -93,7 +94,7 @@ def decode_batch_rgb(datas: Sequence[bytes], *, device, mesh=None,
 
     groups: Dict[object, List[int]] = {}
     for i, r in enumerate(results):
-        groups.setdefault(r.geometry, []).append(i)
+        groups.setdefault(_group_key(r), []).append(i)
 
     out: List[Optional[np.ndarray]] = [None] * len(results)
     for geometry, indices in groups.items():

@@ -153,7 +153,7 @@ def _assert_contract(got, want):
 
 def _single(data, scale=1.0):
     """The port's single-image device path, as [H, W, 3] numpy."""
-    res = jt.decode(data, sparse_direct=True)
+    res = jtt.decode(data, sparse_direct=True)
     res.prepack()
     return np.moveaxis(jtt.to_rgb8_device(res, device="cpu", scale=scale).numpy(), 0, -1)
 

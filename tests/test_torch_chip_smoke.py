@@ -65,7 +65,7 @@ def test_encoder_round_trips_through_host_decoder(smoke, quality):
 
 def test_cpu_golden_matches_host_decode(smoke):
     rgb = smoke.synth_image(3, 256)
-    res = jt.decode(smoke.encode_420(rgb, 75), sparse_direct=True)
+    res = jtt.decode(smoke.encode_420(rgb, 75), sparse_direct=True)
     got = jtt.to_rgb8_device(res, device="cpu").numpy()
     want = np.moveaxis(res.to_rgb8(), -1, 0)
     d = np.abs(got.astype(np.int64) - want)
@@ -78,9 +78,9 @@ def test_encoder_streams_take_v1_wire_when_pinned(smoke, monkeypatch):
     its streams then carry a v1 MCU payload, which the port's CPU path
     decodes to the v2 wire's very image."""
     data = smoke.encode_420(smoke.synth_image(4, 128), 75)
-    v2 = jtt.to_rgb8_device(jt.decode(data, sparse_direct=True), device="cpu")
+    v2 = jtt.to_rgb8_device(jtt.decode(data, sparse_direct=True), device="cpu")
     monkeypatch.setenv("JPX_WIRE", "1")
-    res = jt.decode(data, sparse_direct=True)
+    res = jtt.decode(data, sparse_direct=True)
     assert res.packed_mcu is not None and res.packed_mcu2 is None
     assert torch.equal(jtt.to_rgb8_device(res, device="cpu"), v2)
     outs = list(jtt.decode_stream_rgb([data, data], device="cpu", group=2))
@@ -112,3 +112,22 @@ def test_exits_nonzero_without_cuda():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+
+
+# The bounds chip_smoke.py reports beside each kernel time: the larger of
+# the bytes at 3.35 TB/s and the fp32 operations at 67 TFLOP/s (an H100
+# SXM's published rates), at the main paths' shapes.
+@pytest.mark.parametrize("kernel,args,want_us,by", [
+    ("k1", (65536, 1, 8, 4), 10.02, "bytes"),      # one 4.2 MP Y plane, int32
+    ("k1", (16384, 1, 8, 4), 2.51, "bytes"),       # one chroma plane
+    ("k1", (65536, 1, 8, 2), 8.14, "operations"),  # int16 coefficients
+    ("k1", (8 * 65536, 8, 8, 4), 80.14, "bytes"),  # a group of 8 Y planes
+    ("k1", (65536, 1, 4, 4), 6.26, "bytes"),       # thumbnails at 1/2, 1/4, 1/8
+    ("k1", (65536, 1, 2, 4), 5.32, "bytes"),
+    ("k1", (65536, 1, 1, 4), 5.09, "bytes"),
+    ("k2", (65536, 4), 8.14, "operations"),
+])
+def test_kernel_bounds(smoke, kernel, args, want_us, by):
+    ms, bound_by = (smoke.k1_bound if kernel == "k1" else smoke.k2_bound)(*args)
+    assert bound_by == by
+    assert abs(ms * 1e3 - want_us) < 0.01, ms * 1e3

@@ -223,10 +223,10 @@ def test_encode_gray_matches_jax_device_encode(precision):
     plane = _samples((77, 133), level_shift, seed=precision)
     got = jtt.encode_gray(plane, 80, device="cpu", precision=precision)
     want = ref_encoder.encode_gray(plane, 80, precision=precision, xp=jnp)
-    encoder = ref_encoder.JpegEncoder()
+    encoder = jtt.JpegEncoder()
     encoder.sample_precision = precision
-    encoder.set_quantization_table(ref_encoder.scale_by_quality(
-        ref_encoder.standard_luminance_table(0), 80))
+    encoder.set_quantization_table(port_encoder.scale_by_quality(
+        port_encoder.standard_luminance_table(0), 80))
     encoder.add_component(1, 0, 0, 0, 1, 1)
     encoder.set_input([plane])
     _check_against_jax(encoder, got, want)
@@ -243,7 +243,7 @@ def test_encode_keeps_the_callers_input():
 
 
 def _ink_encoder():
-    encoder = ref_encoder._configure_rgb_encoder(75, "444")
+    encoder = port_encoder._configure_rgb_encoder(75, "444")
     encoder.add_component(4, 0, 0, 0, 1, 1)
     encoder.set_input_ink(np.zeros((16, 16, 4), np.uint8))
     return encoder
@@ -251,7 +251,7 @@ def _ink_encoder():
 
 def _unported(kind):
     rgb = _gradient_noise(16, 16, seed=1)
-    encoder = ref_encoder._configure_rgb_encoder(75, "420")
+    encoder = port_encoder._configure_rgb_encoder(75, "420")
     if kind == "rgb_reader":
         encoder.set_input_rgb_reader(lambda y0, y1: rgb[y0:y1], 16, 16)
     elif kind == "reader":
@@ -276,7 +276,7 @@ def _unported(kind):
 @pytest.mark.parametrize("kind", ["rgb_reader", "reader", "stream", "ink", "coefficients",
                                   "differential", "precision16", "no_input"])
 def test_encode_raises_for_unported_inputs(kind):
-    with pytest.raises(ref_encoder.JpegEncodeError):
+    with pytest.raises(jtt.JpegEncodeError):
         jtt.encode(_unported(kind), device="cpu")
 
 
@@ -286,7 +286,7 @@ HOST_FIELDS = ("_components", "_quant_tables", "_input_planes", "_input_rgb",
 
 
 def test_encoder_fields_the_port_reads_exist():
-    fields = vars(ref_encoder.JpegEncoder())
+    fields = vars(jtt.JpegEncoder())
     missing = [f for f in HOST_FIELDS if f not in fields]
     assert not missing, missing
     for f in port_encoder._UNPORTED_INPUTS:

@@ -1,6 +1,7 @@
 """PyTorch port, import hygiene: the port runs without JAX (the machine
-with the GPU has neither JAX nor PIL) and hands its product to no
-library kernel."""
+with the GPU has neither JAX nor PIL) and without the JAX package (it
+carries its own host layers), and hands its product to no library
+kernel."""
 
 import os
 import pathlib
@@ -16,27 +17,45 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "jpeglibrary_tpu_torch"
 
 
-def test_cpu_slice_loads_neither_jax_nor_pil():
+def test_cpu_slice_loads_neither_jax_nor_pil(tmp_path):
+    """Every CPU entry point of the port runs in a process where JAX, PIL
+    and the JAX package cannot be imported (the card's machine has
+    neither JAX nor PIL, and the port stands alone); its streams are
+    written here by the JAX package."""
+    import numpy as np
+
+    import jpeglibrary_tpu as jt
+
+    rng = np.random.default_rng(0)
+    rgb = np.clip(np.linspace(0, 255, 64)[None, :, None]
+                  + rng.normal(0, 30, (48, 64, 3)), 0, 255).astype(np.uint8)
+    np.save(tmp_path / "rgb.npy", rgb)
+    (tmp_path / "base.jpg").write_bytes(jt.encode_rgb(rgb, 75))
+    (tmp_path / "arith.jpg").write_bytes(jt.encode_rgb(rgb, 75, arithmetic=True))
     code = (
         "import sys\n"
+        "for name in ('jax', 'jaxlib', 'PIL', 'jpeglibrary_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import pathlib\n"
         "import numpy as np\n"
-        "import jpeglibrary_tpu as jt\n"
         "import jpeglibrary_tpu_torch as jtt\n"
-        "rng = np.random.default_rng(0)\n"
-        "rgb = np.clip(np.linspace(0, 255, 64)[None, :, None]\n"
-        "              + rng.normal(0, 30, (48, 64, 3)), 0, 255).astype(np.uint8)\n"
-        "data = jt.encode_rgb(rgb, 75)\n"
+        f"d = pathlib.Path({str(tmp_path)!r})\n"
+        "rgb = np.load(d / 'rgb.npy')\n"
+        "data, arith = (d / 'base.jpg').read_bytes(), (d / 'arith.jpg').read_bytes()\n"
         "out = list(jtt.decode_stream_rgb([data, data], device='cpu'))\n"
         "assert [tuple(o.shape) for o in out] == [(3, 48, 64)] * 2\n"
-        "arith = jt.encode_rgb(rgb, 75, arithmetic=True)\n"
         "out = list(jtt.decode_stream_rgb([data, data, arith], device='cpu', group=2,\n"
         "                                 scale=0.5))\n"
         "assert [tuple(o.shape) for o in out] == [(3, 24, 32)] * 3\n"
         "out = jtt.decode_batch_rgb([data, arith], device='cpu', scale=0.25)\n"
         "assert [o.shape for o in out] == [(12, 16, 3)] * 2\n"
         "ours = jtt.encode_rgb(rgb, 75, device='cpu')\n"
-        "assert jt.decode(ours).to_rgb8().shape == (48, 64, 3)\n"
-        "print(sorted(m for m in ('jax', 'jaxlib', 'PIL') if m in sys.modules))\n"
+        "assert jtt.decode(ours).to_rgb8().shape == (48, 64, 3)\n"
+        "plane = (rgb[..., 0].astype(np.int32) * 16)\n"
+        "ours = jtt.encode_gray(plane, 90, device='cpu', precision=12)\n"
+        "assert jtt.decode(ours).precision == 12\n"
+        "print(sorted(m for m in ('jax', 'jaxlib', 'PIL', 'jpeglibrary_tpu')\n"
+        "             if sys.modules.get(m) is not None))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -70,4 +89,15 @@ def test_port_sources_free_of(pattern):
         for i, line in enumerate(p.read_text().splitlines(), 1)
         if re.search(pattern, line)
     ]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix()
+                                        for p in PORT.rglob("*.py")))
+def test_port_module_imports_nothing_of_the_jax_package(path):
+    """No module of the port imports ``jpeglibrary_tpu`` (as opposed to
+    ``jpeglibrary_tpu_torch``), at its top or inside a function."""
+    pattern = re.compile(r"^\s*(import|from)\s+jpeglibrary_tpu(?!_torch)\b")
+    hits = [f"{path}:{i}" for i, line in enumerate((ROOT / path).read_text().splitlines(), 1)
+            if pattern.match(line)]
     assert not hits, hits

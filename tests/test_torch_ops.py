@@ -7,11 +7,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jpeglibrary_tpu as jt
-from jpeglibrary_tpu.models.decoder import DecodeResult
-from jpeglibrary_tpu.models.geometry import ComponentGeometry, FrameGeometry
+import jpeglibrary_tpu_torch as jtt
+from jpeglibrary_tpu.models import decoder as ref_decoder
+from jpeglibrary_tpu.models import geometry as ref_geometry
 from jpeglibrary_tpu.native import scanner as ns
 from jpeglibrary_tpu.ops import color as ref_color
 from jpeglibrary_tpu.ops import decode_stage as ref_stage
+from jpeglibrary_tpu_torch.host.models import geometry as host_geometry
 from jpeglibrary_tpu_torch.ops import color, decode_stage, pipeline
 
 
@@ -66,9 +68,12 @@ def test_clamp_to_uint8_bit_exact():
     np.testing.assert_array_equal(got.numpy(), ref_stage.clamp_to_uint8(p))
 
 
-def _assert_densify_matches(result):
+def _assert_densify_matches(result, ref):
+    """The port's densify of the port's ``result`` against the JAX
+    package's numpy densify of ``ref``, the same stream's reference result."""
+    np.testing.assert_array_equal(result.packed_mcu2, ref.packed_mcu2)
     got = pipeline.densify_mcu2(torch.from_numpy(result.packed_mcu2)[None], result.geometry)
-    want = result._densify_packed2()
+    want = ref._densify_packed2()
     for plane, cg in zip(got, result.geometry.components):
         assert plane.dtype == torch.int32
         np.testing.assert_array_equal(plane[0].numpy(), want[cg.component_index])
@@ -79,25 +84,28 @@ def _nb(geometry):
     return geometry.mcus_per_line * geometry.mcus_per_column * bpm
 
 
+def _both(data):
+    """The stream's result from the port's host decode and the JAX package's."""
+    return jtt.decode(data, sparse_direct=True), jt.decode(data, sparse_direct=True)
+
+
 @pytest.mark.parametrize("sub", ["444", "422", "420"])
 def test_densify_bit_exact(sub):
-    res = jt.decode(jt.encode_rgb(_gradient_noise(96, 120, 3), 80, subsampling=sub),
-                    sparse_direct=True)
+    res, ref = _both(jt.encode_rgb(_gradient_noise(96, 120, 3), 80, subsampling=sub))
     assert res.packed_mcu2 is not None
-    _assert_densify_matches(res)
+    _assert_densify_matches(res, ref)
 
 
 def test_densify_exceptions_and_odd_block_count():
     """q95 4:4:4 has |AC| > 127 exceptions, and 211x333 gives NB = 3402,
     so the exception block starts at an offset not divisible by 4."""
-    res = jt.decode(jt.encode_rgb(_gradient_noise(211, 333, 4), 95, subsampling="444"),
-                    sparse_direct=True)
+    res, ref = _both(jt.encode_rgb(_gradient_noise(211, 333, 4), 95, subsampling="444"))
     payload, nb = res.packed_mcu2, _nb(res.geometry)
     assert nb % 4 != 0
     bn = ns.v2_payload_bn(payload, nb)
     exc = payload[3 * nb + 2 * bn :].view(np.int32).reshape(-1, 2)
     assert np.any(exc[:, 1] != 0)
-    _assert_densify_matches(res)
+    _assert_densify_matches(res, ref)
 
 
 def test_densify_rebucketed_with_flat_tail():
@@ -105,20 +113,21 @@ def test_densify_rebucketed_with_flat_tail():
     entries: their markers and the padding entries must add nothing."""
     rgb = _gradient_noise(80, 96, 5)
     rgb[48:] = 128
-    res = jt.decode(jt.encode_rgb(rgb, 75, subsampling="420"), sparse_direct=True)
+    res, ref = _both(jt.encode_rgb(rgb, 75, subsampling="420"))
     nb = _nb(res.geometry)
     bn = ns.v2_payload_bn(res.packed_mcu2, nb)
-    res.packed_mcu2 = ns.rebucket_v2_payload(res.packed_mcu2, nb, bn + 2048)
+    for r in (res, ref):
+        r.packed_mcu2 = ns.rebucket_v2_payload(r.packed_mcu2, nb, bn + 2048)
     assert res.packed_mcu2[2 * nb : 3 * nb][-6:].max() == 0
-    _assert_densify_matches(res)
+    _assert_densify_matches(res, ref)
 
 
 def test_densify_full_bucket_out_of_bounds_markers():
     """AC bucket exactly full: the trailing zero-count blocks start at
     slot Bn, past the end of the bucket (JAX drops that scatter)."""
     rng = np.random.default_rng(6)
-    comp = ComponentGeometry(0, 1, 1, 1, 1, 1, 8, 4)
-    geo = FrameGeometry(64, 32, 8, 1, 1, 8, 4, (comp,))
+    geos = [g.FrameGeometry(64, 32, 8, 1, 1, 8, 4, (g.ComponentGeometry(0, 1, 1, 1, 1, 1, 8, 4),))
+            for g in (host_geometry, ref_geometry)]
     nb, bn = 32, 1024
     counts = np.zeros(nb, dtype=np.uint8)
     counts[:20] = 51
@@ -134,5 +143,6 @@ def test_densify_full_bucket_out_of_bounds_markers():
         [dc.view(np.uint8), counts, acpos, acval.view(np.uint8), exc.reshape(-1).view(np.uint8)]
     )
     assert ns.v2_payload_bn(payload, nb) == bn
-    res = DecodeResult(frame=None, geometry=geo, packed_mcu2=payload)
-    _assert_densify_matches(res)
+    res = jtt.DecodeResult(frame=None, geometry=geos[0], packed_mcu2=payload)
+    ref = ref_decoder.DecodeResult(frame=None, geometry=geos[1], packed_mcu2=payload)
+    _assert_densify_matches(res, ref)

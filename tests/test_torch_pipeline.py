@@ -42,22 +42,23 @@ def _assert_contract(got, want):
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
+    """The stream, the port's host decode of it and the JAX package's."""
     data = CASES[request.param]()
-    return data, jt.decode(data, sparse_direct=True)
+    return data, jtt.decode(data, sparse_direct=True), jt.decode(data, sparse_direct=True)
 
 
 def test_matches_jax_device_and_host(case):
-    _data, res = case
+    _data, res, ref = case
     assert res.packed_mcu2 is not None
     got = jtt.to_rgb8_device(res, device="cpu")
     assert got.dtype == torch.uint8 and got.device.type == "cpu"
     assert tuple(got.shape) == (3, res.height, res.width)
-    _assert_contract(got.numpy(), np.asarray(res.to_rgb8_device()))
-    _assert_contract(got.numpy(), np.moveaxis(res.to_rgb8(), -1, 0))
+    _assert_contract(got.numpy(), np.asarray(ref.to_rgb8_device()))
+    _assert_contract(got.numpy(), np.moveaxis(ref.to_rgb8(), -1, 0))
 
 
 def test_deterministic(case):
-    _data, res = case
+    _data, res, _ref = case
     a = jtt.to_rgb8_device(res, device="cpu")
     b = jtt.to_rgb8_device(res, device="cpu")
     assert torch.equal(a, b)
@@ -65,7 +66,7 @@ def test_deterministic(case):
 
 def test_stream_matches_per_image_in_order():
     datas = [CASES[k]() for k in sorted(CASES)]
-    want = [jtt.to_rgb8_device(jt.decode(d, sparse_direct=True), device="cpu") for d in datas]
+    want = [jtt.to_rgb8_device(jtt.decode(d, sparse_direct=True), device="cpu") for d in datas]
     got = list(jtt.decode_stream_rgb(datas, device="cpu", depth=2, scan_workers=3))
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -73,7 +74,7 @@ def test_stream_matches_per_image_in_order():
 
 
 def test_transform_mcu2_takes_numpy_inputs():
-    res = jt.decode(CASES["420"](), sparse_direct=True)
+    res = jtt.decode(CASES["420"](), sparse_direct=True)
     payload, quants = jtt.device_inputs(res, "cpu")
     want = jtt.transform_mcu2(payload, quants, res.geometry, "cpu")
     got = jtt.transform_mcu2(res.packed_mcu2, quants.numpy(), res.geometry, "cpu")
@@ -81,7 +82,7 @@ def test_transform_mcu2_takes_numpy_inputs():
 
 
 def test_guard_lossless():
-    res = jt.decode(jt.encode_lossless(_gradient_noise(32, 48, 8)[..., 0]))
+    res = jtt.decode(jt.encode_lossless(_gradient_noise(32, 48, 8)[..., 0]))
     with pytest.raises(ValueError, match="lossless"):
         jtt.to_rgb8_device(res, device="cpu")
 
@@ -90,7 +91,7 @@ def test_guard_lossless():
 def test_guard_unported_options(kwargs):
     """An invalid scale raises, as in the JAX package; fancy upsampling is
     not ported yet and raises."""
-    res = jt.decode(CASES["420"](), sparse_direct=True)
+    res = jtt.decode(CASES["420"](), sparse_direct=True)
     with pytest.raises(ValueError):
         jtt.to_rgb8_device(res, device="cpu", **kwargs)
 
@@ -99,17 +100,18 @@ def test_guard_no_v2_payload():
     """A result without a fused-scan payload (the staged decode's dense
     planes) rides the v1 plane-order wire, within the contract of the JAX
     device path and of the host golden."""
-    res = jt.decode(CASES["420"]())
+    data = CASES["420"]()
+    res, ref = jtt.decode(data), jt.decode(data)
     assert res.packed_mcu2 is None and res.packed_mcu is None
     got = jtt.to_rgb8_device(res, device="cpu")
     assert tuple(got.shape) == (3, res.height, res.width)
-    _assert_contract(got.numpy(), np.asarray(res.to_rgb8_device()))
-    _assert_contract(got.numpy(), np.moveaxis(res.to_rgb8(), -1, 0))
+    _assert_contract(got.numpy(), np.asarray(ref.to_rgb8_device()))
+    _assert_contract(got.numpy(), np.moveaxis(ref.to_rgb8(), -1, 0))
 
 
 def test_guard_cmyk_stream():
     ink = np.concatenate([_gradient_noise(32, 48, 9), _gradient_noise(32, 48, 10)[..., :1]], -1)
-    res = jt.decode(jt.encode_cmyk(ink, 80), sparse_direct=True)
+    res = jtt.decode(jt.encode_cmyk(ink, 80), sparse_direct=True)
     assert res.color_transform == "cmyk"
     with pytest.raises(ValueError, match="cmyk"):
         jtt.to_rgb8_device(res, device="cpu")

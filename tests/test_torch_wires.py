@@ -33,18 +33,20 @@ def _image(h, w, seed):
     return np.clip(base + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
-def _decode(data, wire):
+def _decode(data, wire, decode=jtt.decode):
+    """``data`` on ``wire`` through the port's host decode, or through
+    ``decode``'s (the JAX package's, for its own device path)."""
     if wire == "v1":
         os.environ["JPX_WIRE"] = "1"
         try:
-            res = jt.decode(data, sparse_direct=True)
+            res = decode(data, sparse_direct=True)
         finally:
             del os.environ["JPX_WIRE"]
         assert res.packed_mcu is not None and res.packed_mcu2 is None
         return res
     if wire == "staged":
-        return jt.decode(data)  # dense planes, no fused-scan payload
-    res = jt.decode(data, sparse_direct=True)
+        return decode(data)  # dense planes, no fused-scan payload
+    res = decode(data, sparse_direct=True)
     res.prepack()
     if wire == "delta":
         assert res.packed_mcu is None and res.packed_mcu2 is None
@@ -78,28 +80,29 @@ def _contract(got, want, share=1e-4):
 def case(request):
     make, wire = CASES[request.param]
     data = make()
-    return data, _decode(data, wire)
+    return _decode(data, wire), _decode(data, wire, jt.decode)
 
 
 @pytest.mark.parametrize("scale", SCALES)
 def test_wire_matches_jax_device_and_host(case, scale):
-    _data, res = case
+    res, ref = case
     got = jtt.to_rgb8_device(res, device="cpu", scale=scale)
     n = int(8 * scale)
     assert got.dtype == torch.uint8 and got.device.type == "cpu"
     assert tuple(got.shape) == (3, -(-res.height * n // 8), -(-res.width * n // 8))
     share = 1e-4 if scale == 1 else 0.05
-    _contract(got.numpy(), np.asarray(res.to_rgb8_device(scale=scale)), share)
-    host = res.to_rgb8() if scale == 1 else res.to_rgb8_scaled(scale)
+    _contract(got.numpy(), np.asarray(ref.to_rgb8_device(scale=scale)), share)
+    host = ref.to_rgb8() if scale == 1 else ref.to_rgb8_scaled(scale)
     _contract(got.numpy(), np.moveaxis(host, -1, 0), share)
 
 
 def test_dense_entry_matches_jax_dense():
     """``sparse=False`` on a result without a payload takes the dense
     planes (the JAX ``jitted_transform(..., "rgb8p")``)."""
-    res = jt.decode(jt.encode_rgb(_image(72, 88, 8), 80, subsampling="420"))
+    data = jt.encode_rgb(_image(72, 88, 8), 80, subsampling="420")
+    res = jtt.decode(data)
     got = jtt.to_rgb8_device(res, device="cpu", sparse=False)
-    _contract(got.numpy(), np.asarray(res.to_rgb8_device(sparse=False)))
+    _contract(got.numpy(), np.asarray(jt.decode(data).to_rgb8_device(sparse=False)))
     assert torch.equal(got, jtt.to_rgb8_device(res, device="cpu", sparse=True))
     with pytest.raises(ValueError, match="sparse"):
         jtt.to_rgb8_device(res, device="cpu", sparse=False, scale=0.5)
@@ -113,7 +116,7 @@ def test_v1_and_v2_wires_agree(scale):
     outs = [jtt.to_rgb8_device(_decode(data, wire), device="cpu", scale=scale)
             for wire in ("v2", "v1", "staged")]
     if scale == 1:
-        outs.append(jtt.to_rgb8_device(jt.decode(data), device="cpu", sparse=False))
+        outs.append(jtt.to_rgb8_device(jtt.decode(data), device="cpu", sparse=False))
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
 
@@ -138,11 +141,11 @@ def test_delta_densify_spare_slot(offset):
     whose positions sit at -1 (JAX wraps that scatter to the last slot and
     adds 0; ``index_add_`` would raise): beside a normal image in one
     stacked call it decodes to flat mid-gray."""
-    from jpeglibrary_tpu.native import scanner as ns
+    from jpeglibrary_tpu_torch.host.native import scanner as ns
     from jpeglibrary_tpu_torch.ops import pipeline
 
-    flat = jt.decode(jt.encode_gray(np.full((16, 24), 128, np.uint8), 90))
-    other = jt.decode(jt.encode_gray(_image(16, 24, 11)[..., 0], 90))
+    flat = jtt.decode(jt.encode_gray(np.full((16, 24), 128, np.uint8), 90))
+    other = jtt.decode(jt.encode_gray(_image(16, 24, 11)[..., 0], 90))
     geo = flat.geometry
     assert not flat.coefficients[geo.components[0].component_index].any()
     packs = [ns.pack_sparse([r.coefficients[geo.components[0].component_index]]).reshape(-1)
