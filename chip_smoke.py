@@ -21,15 +21,18 @@ images through ``encode_rgb(..., device="cuda")``. In order:
    reduced outputs n = 4, 2, 1 of the thumbnail decode (at n = 2 the
    folded sums sit near .5 ties on about one sample in eight, so there
    every differing sample must be such a near tie);
-   K2 (FDCT + quantize) from int32 and uint8 sample planes, plus exact
-   .5 ties (constant blocks, q = 16) that must round half to even.
+   K2 (pad + box subsample + FDCT + quantize, the product on the tensor
+   cores) on the unpadded planes of K2_SHAPES: the Y and a chroma plane
+   of a 2048x2048 image at 1x1 and 2x2, a ragged 2047x1999 plane at 2x2
+   and 2x1, 12-bit int32 planes at level shift 2048; plus exact .5 ties
+   (blocks constant after the box, q = 16) that must round half to even.
    Each shape is timed against its plain version and against one
    ``torch.matmul`` of the same product (the library yardstick, never
    called by the port): with CUDA events around each call (launch gaps
-   included) and as kernel time from
-   ``torch.profiler``, warm and, for K1, with the L2 flushed by a 256 MB
-   write before each call; each against its bound (bytes over 3.35 TB/s
-   or fp32 operations over 67 TFLOP/s, whichever is larger);
+   included) and as kernel time from ``torch.profiler``, warm and with
+   the L2 flushed by a 256 MB write before each call; each against its
+   bound (the larger of the bytes over 3.35 TB/s and the product over
+   989 TFLOP/s bf16 plus the per-element operations over 67 TFLOP/s);
 4. decode slice: the images are synthesised (a numpy gradient plus noise
    per seed) and encoded by the baseline encoder below; the stream
    decode is held against the port's CPU path (<= 2 RGB levels on <= 1e-4
@@ -57,7 +60,8 @@ images through ``encode_rgb(..., device="cuda")``. In order:
    CPU path on <= 1e-3 of the values, and the bytes equal to the CPU
    path's wherever the planes are; the same bytes on a second run; the
    JPEGs decoded on the card by ``decode_stream_rgb`` at PSNR >= 22 dB
-   against the source; then where an image's encode time goes (host
+   against the source; the device stage is 3 K2 kernels and nothing else
+   (``torch.profiler``); then where an image's encode time goes (host
    colour conversion, upload, device stage, download, host emission) and
    the median per image end to end.
 
@@ -102,15 +106,18 @@ N_ARITH = 4  # images re-encoded with arithmetic coding for the v1 plane-order w
 SIZE = 2048
 TIMED_RUNS = 25
 STREAM_RUNS = 5  # warm stream runs after the first; host-clock times vary from run to run
+STAGE_RUNS = 5  # encode device stages under the profiler that lists their kernels
 GROUPS = (1, 2, 4, 8)
 MIN_PSNR_DB = 22.0  # the decode against its source image; q75 and the noise give ~24.6 dB
 SCALED_SHARE = 0.05  # the JAX package's scaled contract: <= 2 levels on < 5% of the values
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clocks
 FLUSH_BYTES = 256 << 20  # written between timed calls to empty the 50 MB L2
 # The bound of a kernel call: the larger of its bytes (each input read once,
-# each output written once) over the memory rate and its fp32 operations
-# over the CUDA cores' peak (an H100 SXM's published rates at 700 W).
+# each output written once) over the memory rate, and its matrix product
+# over the tensor cores' dense bf16 peak plus its per-element operations
+# over the CUDA cores' fp32 peak (an H100 SXM's published rates at 700 W).
 HBM_BYTES_PER_S = 3.35e12
+TENSOR_FLOPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 
 
@@ -277,21 +284,23 @@ def phase_build():
         log(f"  {ln.strip()}")
 
 
-def bound(n_bytes, n_ops):
-    """(bound ms, what bounds it) for a call that moves ``n_bytes`` and
-    does ``n_ops`` fp32 operations."""
+def bound(n_bytes, mma_flops, other_ops):
+    """(bound ms, what bounds it) for a call that moves ``n_bytes``, does
+    ``mma_flops`` of matrix product (at the tensor cores' dense bf16 rate)
+    and ``other_ops`` per-element operations (at the CUDA cores' fp32
+    rate): the least time the card could take for the same work."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    ops_ms = (mma_flops / TENSOR_FLOPS_PER_S + other_ops / FP32_OPS_PER_S) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def k1_bound(n_blocks, n_tables, n, itemsize):
-    """K1's bound: coefficients, tables and matrix in, samples out; per
-    coefficient one dequant multiply and one FMA (2 operations) per output
-    column, per sample one rounding add."""
+    """K1's bound: coefficients, tables and matrix in, samples out; the
+    product's 2 * 64 * w flops per block, per coefficient one dequant
+    multiply and per sample one rounding add."""
     w = n * n
     n_bytes = n_blocks * 64 * itemsize + n_tables * 64 * 4 + 64 * w * 4 + n_blocks * w * 4
-    return bound(n_bytes, n_blocks * 64 * (1 + 2 * w) + n_blocks * w)
+    return bound(n_bytes, n_blocks * 2 * 64 * w, n_blocks * 64 + n_blocks * w)
 
 
 def k1_record(key, label, k_ms, p_ms, lib_ms, bound_ms, bound_by, max_abs):
@@ -419,84 +428,124 @@ def phase_kernel(dev):
     return records
 
 
-def k2_bound(n_blocks, itemsize):
-    """K2's bound: samples, table and matrix in, int16 coefficients out;
-    per sample a level-shift subtract and per coefficient 64 FMAs (2
-    operations each) and a divide."""
-    n_bytes = n_blocks * 64 * (itemsize + 2) + 64 * 4 + 64 * 64 * 4
-    return bound(n_bytes, n_blocks * 64 * (1 + 2 * 64 + 1))
+def k2_bound(n_blocks, itemsize, plane_samples=None):
+    """K2's bound: the unpadded plane (``plane_samples``, by default 64 per
+    block: no box), the quant table and the bf16 split of F in, int16
+    coefficients out; the product's 2 * 64 * 64 flops per block, per
+    sample one box add, per coefficient a level shift and a divide."""
+    if plane_samples is None:
+        plane_samples = n_blocks * 64
+    n_bytes = plane_samples * itemsize + 64 * 4 + 3 * 64 * 64 * 2 + n_blocks * 64 * 2
+    return bound(n_bytes, n_blocks * 2 * 64 * 64, plane_samples + n_blocks * 64 * 2)
+
+
+# K2's shapes: (label, height, width, sample dtype, level shift, hs, vs). The
+# first two are the main path's (the Y plane and one chroma plane of a
+# 2048x2048 4:2:0 image); a 1999-sample pitch takes the byte copy (uint8) or
+# the 4-byte copy (int32) instead of 16-byte cp.async.
+K2_SHAPES = (
+    ("Y 2048x2048 uint8 1x1", 2048, 2048, torch.uint8, 128, 1, 1),
+    ("chroma 2048x2048 uint8 2x2", 2048, 2048, torch.uint8, 128, 2, 2),
+    ("ragged 2047x1999 uint8 2x2", 2047, 1999, torch.uint8, 128, 2, 2),
+    ("ragged 2047x1999 uint8 2x1", 2047, 1999, torch.uint8, 128, 2, 1),
+    ("12-bit 2048x2048 int32 1x1", 2048, 2048, torch.int32, 2048, 1, 1),
+    ("12-bit ragged 2047x1999 int32 2x1", 2047, 1999, torch.int32, 2048, 2, 1),
+    ("Y 2048x2048 int32 1x1", 2048, 2048, torch.int32, 128, 1, 1),
+)
+
+
+def k2_plain(plane, quant, ls, hs, vs, matrix):
+    """K2's plain version on the card: pad_to_grid -> subsample_box ->
+    fdct_quantize, as the wrapper runs it for a CPU plane."""
+    from jpeglibrary_tpu_torch.ops import encode_stage
+
+    h, w = plane.shape
+    hb, wb = -(-h // (8 * vs)), -(-w // (8 * hs))
+    padded = encode_stage.pad_to_grid(plane, hb * 8 * vs, wb * 8 * hs)
+    return encode_stage.fdct_quantize(encode_stage.subsample_box(padded, hs, vs), quant, ls,
+                                      matrix)
 
 
 def phase_kernel_fdct(dev):
-    """K2 against its plain version on the card; returns the record."""
+    """K2 against its plain version on the card at K2_SHAPES and on exact
+    ties; each shape timed warm and with the L2 flushed, beside the plain
+    version and one ``torch.matmul`` of the subsampled, level-shifted
+    blocks cut beforehand (full fp32, the product cuBLAS computes).
+    Returns the record, with the Y plane's flushed times."""
     from jpeglibrary_tpu_torch.ops import encode_stage, kernels
 
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     matrix = kernels.fdct_matrix(dev)
     rng = np.random.default_rng(4321)
     worst = 0
-    timing = {}
-    for n in KERNEL_BLOCKS:
-        side = 8 * int(np.sqrt(n))  # a square plane of n blocks
+    record = None
+    for label, h, w, dtype, ls, hs, vs in K2_SHAPES:
+        plane = torch.from_numpy(rng.integers(0, 2 * ls, size=(h, w))).to(dtype).to(dev)
         quant = torch.from_numpy(rng.integers(1, 256, size=64).astype(np.int32)).to(dev)
-        u8 = torch.from_numpy(rng.integers(0, 256, size=(side, side)).astype(np.uint8)).to(dev)
-        for ls in LEVEL_SHIFTS:
-            i32 = torch.from_numpy(
-                rng.integers(0, 2 * ls, size=(side, side)).astype(np.int32)).to(dev)
-            for p in (i32, u8):
-                got = kernels.fdct_quantize(p, quant, ls)
-                want = encode_stage.fdct_quantize(p, quant, ls, matrix)
-                torch.cuda.synchronize()
-                check(got.shape == want.shape == (side // 8, side // 8, 64)
-                      and got.dtype == torch.int16, (tuple(got.shape), got.dtype))
-                diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
-                max_abs = int(diff.max())
-                share = float((diff > 0).double().mean())
-                log(f"kernel: K2 vs plain, {n} blocks, {p.dtype}, level_shift {ls}: "
-                    f"max |diff| {max_abs}, differing share {share:.3e}")
-                check(max_abs <= 1 and share <= 1e-3, (n, p.dtype, ls, max_abs, share))
-                worst = max(worst, max_abs)
-        # The library yardstick: one torch.matmul of the level-shifted blocks,
-        # cut from the plane beforehand, by the same matrix.
-        blocks = (i32 - 128).to(torch.float32).reshape(side // 8, 8, side // 8, 8)
-        blocks = blocks.permute(0, 2, 1, 3).reshape(-1, 64).contiguous()
+        got = kernels.fdct_quantize(plane, quant, ls, hs=hs, vs=vs)
+        want = k2_plain(plane, quant, ls, hs, vs, matrix)
+        torch.cuda.synchronize()
+        n = want.shape[0] * want.shape[1]
+        check(got.shape == want.shape and got.dtype == torch.int16,
+              (label, tuple(got.shape), got.dtype))
+        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        max_abs = int(diff.max())
+        share = float((diff > 0).double().mean())
+        log(f"kernel: K2 vs plain, {label} ({n} blocks), level shift {ls}: max |diff| "
+            f"{max_abs}, differing share {share:.3e}")
+        check(max_abs <= 1 and share <= 1e-3, (label, max_abs, share))
+        worst = max(worst, max_abs)
+
+        hb, wb = want.shape[:2]
+        sub = encode_stage.subsample_box(
+            encode_stage.pad_to_grid(plane, hb * 8 * vs, wb * 8 * hs), hs, vs)
+        blocks = (sub.to(torch.float32) - ls).reshape(hb, 8, wb, 8).permute(0, 2, 1, 3)
+        blocks = blocks.reshape(-1, 64).contiguous()
         fns = (
-            lambda: encode_stage.fdct_quantize(i32, quant, 128, matrix),
-            lambda: kernels.fdct_quantize(i32, quant, 128),
-            lambda: kernels.fdct_quantize(u8, quant, 128),
+            lambda: k2_plain(plane, quant, ls, hs, vs, matrix),
+            lambda: kernels.fdct_quantize(plane, quant, ls, hs=hs, vs=vs),
             lambda: torch.matmul(blocks, matrix),
         )
-        p_ev, k_ev, u_ev, lib_ev = device_ms(*fns)
-        p_ms, k_ms, u_ms, lib_ms = kernel_ms(*fns)
-        b_ms, b_by = k2_bound(n, 4)
-        timing[n] = (k_ms, p_ms, lib_ms, b_ms, b_by)
-        gbs = n * 64 * 6 / (k_ms * 1e-3) / 1e9
-        log(f"kernel: {n} blocks, CUDA events around each call (launch gaps included): K2 int32 "
-            f"{k_ev:.6f} ms, K2 uint8 {u_ev:.6f} ms, plain {p_ev:.6f} ms, torch.matmul "
-            f"{lib_ev:.6f} ms (median of {TIMED_RUNS} in turns)")
-        log(f"kernel: {n} blocks: K2 int32 {k_ms:.6f} ms ({gbs:.1f} GB/s of 6 B per sample; "
-            f"{b_ms / k_ms:.1%} of its {b_by} bound {b_ms:.6f} ms), K2 uint8 {u_ms:.6f} ms, "
-            f"plain int32 {p_ms:.6f} ms, torch.matmul of the pre-cut fp32 blocks "
-            f"{lib_ms:.6f} ms (kernel time, mean of {TIMED_RUNS} in turns)")
+        p_ev, k_ev, lib_ev = device_ms(*fns)
+        warm = kernel_ms(*fns)
+        cold = kernel_ms(*fns, flush=flush)
+        b_ms, b_by = k2_bound(n, plane.element_size(), h * w)
+        log(f"kernel: K2 {label}, CUDA events around each call (launch gaps included): K2 "
+            f"{k_ev:.6f} ms, plain {p_ev:.6f} ms, torch.matmul {lib_ev:.6f} ms (median of "
+            f"{TIMED_RUNS} in turns)")
+        for what, (p_ms, k_ms, lib_ms) in (("warm", warm), ("L2 flushed", cold)):
+            log(f"kernel: K2 {label}, {what}: K2 {k_ms:.6f} ms ({b_ms / k_ms:.1%} of its "
+                f"{b_by} bound {b_ms:.6f} ms), plain (pad, subsample, fdct_quantize) "
+                f"{p_ms:.6f} ms, torch.matmul of the pre-cut fp32 blocks {lib_ms:.6f} ms "
+                f"(kernel time, mean of {TIMED_RUNS} in turns)")
+        if record is None:  # the Y plane, the first shape
+            p_ms, k_ms, lib_ms = cold
+            record = {"name": "fdct_quantize", "route": "cuda", "source": K2_SOURCE,
+                      "replaces": K2_REPLACES, "launches": None, "max_abs_err": None,
+                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
+        del plane, got, want, diff, sub, blocks
+    del flush
 
-    # Exact ties: a constant block of ls + s has DC 8s exactly, so q = 16
-    # gives s/2, a .5 for odd s, which must round half to even.
+    # Exact ties: blocks constant after the box, level shift + s, have DC 8s
+    # exactly, so q = 16 gives s/2, a .5 for odd s, which must round half to even.
     s = np.arange(-128, 128)
     want_dc = torch.from_numpy(np.rint(s / 2).astype(np.int16))
     q16 = torch.full((64,), 16, dtype=torch.int32, device=dev)
-    for ls, dtype in ((128, torch.uint8), (128, torch.int32), (2048, torch.int32)):
-        plane = np.repeat(np.repeat((ls + s).reshape(16, 16), 8, 0), 8, 1)
+    for ls, dtype, hs, vs in ((128, torch.uint8, 1, 1), (128, torch.int32, 1, 1),
+                              (2048, torch.int32, 1, 1), (128, torch.uint8, 2, 2),
+                              (2048, torch.int32, 2, 1)):
+        plane = np.repeat(np.repeat((ls + s).reshape(16, 16), 8 * vs, 0), 8 * hs, 1)
         plane = torch.from_numpy(plane).to(dtype).to(dev)
-        got = kernels.fdct_quantize(plane, q16, ls).reshape(256, 64).cpu()
-        plain = encode_stage.fdct_quantize(plane, q16, ls, matrix).reshape(256, 64).cpu()
-        check(torch.equal(got[:, 0], want_dc) and not got[:, 1:].any(), ("ties", ls, dtype))
-        check(torch.equal(got, plain), ("ties vs plain", ls, dtype))
-    log("kernel: K2 exact ties (128 odd DC values of s/2, uint8 and int32, level shifts "
-        "128 and 2048): all round half to even, equal to the plain version")
-    k_ms, p_ms, lib_ms, b_ms, b_by = timing[KERNEL_BLOCKS[0]]
-    return {"name": "fdct_quantize", "route": "cuda", "source": K2_SOURCE,
-            "replaces": K2_REPLACES, "launches": None, "max_abs_err": worst,
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+        got = kernels.fdct_quantize(plane, q16, ls, hs=hs, vs=vs).reshape(256, 64).cpu()
+        plain = k2_plain(plane, q16, ls, hs, vs, matrix).reshape(256, 64).cpu()
+        check(torch.equal(got[:, 0], want_dc) and not got[:, 1:].any(), ("ties", ls, dtype, hs))
+        check(torch.equal(got, plain), ("ties vs plain", ls, dtype, hs))
+    log("kernel: K2 exact ties (128 odd DC values of s/2; uint8 and int32, level shifts "
+        "128 and 2048, boxes 1x1, 2x2 and 2x1): all round half to even, equal to the plain "
+        "version")
+    record["max_abs_err"] = worst
+    return record
 
 
 def synth_image(seed, size):
@@ -981,15 +1030,38 @@ def phase_encode(record, sources, dev):
     comp_params = ((2, 2, 1, 1), (1, 1, 2, 2), (1, 1, 2, 2))
     fwd_ms = wall_ms(lambda: encode_stage.forward(dev_planes, quants, comp_params,
                                                   mpl, mpc, 128, dev))
-    (stage_ms,) = device_ms(lambda: [
-        encode_stage.forward_component(p, q, *cp, mpl, mpc, 128)
-        for p, q, cp in zip(dev_planes, quants, comp_params)])
-    outs = [encode_stage.forward_component(p, q, *cp, mpl, mpc, 128)
-            for p, q, cp in zip(dev_planes, quants, comp_params)]
+    def stage():
+        return [encode_stage.forward_component(p, q, *cp, mpl, mpc, 128)
+                for p, q, cp in zip(dev_planes, quants, comp_params)]
+
+    # The stage is K2 alone: the pad and the box run inside its load. The
+    # runtime API's launches count every kernel of the window; CUPTI's kernel
+    # records can miss the first few after the profiler starts, so they only
+    # name the kernels.
+    stage()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(STAGE_RUNS):
+            stage()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    api_launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    kernels_seen = {e.key: e.count for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA}
+    log(f"encode: the device stage over {STAGE_RUNS} runs: {api_launches} kernel launches; "
+        f"kernels recorded: {kernels_seen}")
+    check(api_launches == 3 * STAGE_RUNS and kernels_seen
+          and all("fdct_quant" in k for k in kernels_seen),
+          ("the device stage ran other kernels than 3 x K2", api_launches, kernels_seen))
+    (stage_ms,) = device_ms(stage)
+    (stage_kernel_ms,) = kernel_ms(stage)
+    outs = stage()
     down_ms = wall_ms(lambda: torch.cat([o.reshape(-1) for o in outs]).cpu())
     log(f"encode: one image's parts: host colour {statistics.median(colour_s) * 1e3:.6f} ms "
         f"(median of {len(jobs)}); upload {up_ms:.6f} ms (host clock); device stage "
-        f"(pad, subsample, 3 x K2) {stage_ms:.6f} ms (device time); download "
+        f"(3 x K2 with the pad and box fused) {stage_ms:.6f} ms (CUDA events), "
+        f"{stage_kernel_ms:.6f} ms (kernel time, warm); download "
         f"{down_ms:.6f} ms (host clock); forward with the planes on the card "
         f"{fwd_ms:.6f} ms (host clock to the int16 planes on the host, median of "
         f"{TIMED_RUNS}); host emission {statistics.median(emit_s) * 1e3:.6f} ms "

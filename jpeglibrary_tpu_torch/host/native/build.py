@@ -10,13 +10,16 @@ port's own ``scanner.cpp`` into ``jpeglibrary_tpu_torch/host/native/_build``.
 is named by the hash of its source, so the two share a file only when
 their sources are equal, and then it is the same library. ctypes loads
 each library with ``RTLD_LOCAL``, so the reference's scanner and this
-one can be loaded in one process. Unlike the reference's, each process
-compiles into a temporary file of its own before the atomic rename.
+one can be loaded in one process. Unlike the reference's, the compile
+runs under an exclusive ``flock`` on a lock file beside the library, so
+the processes of one machine (parallel test workers) compile it once,
+into a temporary file before the atomic rename.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -46,15 +49,19 @@ def build_library() -> pathlib.Path:
     so_path = out_dir / f"libjpxscan-{digest}.so"
     if so_path.exists():
         return so_path
-    # One temporary file per process: test workers that build at once
-    # would otherwise write one file and rename it from under each other.
-    tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
-    cmd = [
-        "g++", "-std=c++17", "-O3", "-march=native", "-ffp-contract=off",
-        "-fPIC", "-shared", "-pthread", "-o", str(tmp), str(_SRC),
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(tmp, so_path)
+    # One compile per machine: processes that arrive while another
+    # compiles wait on the lock and then load its library.
+    with open(so_path.with_name(f"{so_path.name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so_path.exists():
+            return so_path
+        tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
+        cmd = [
+            "g++", "-std=c++17", "-O3", "-march=native", "-ffp-contract=off",
+            "-fPIC", "-shared", "-pthread", "-o", str(tmp), str(_SRC),
+        ]
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, so_path)
     return so_path
 
 

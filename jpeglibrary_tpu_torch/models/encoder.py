@@ -25,7 +25,7 @@ from ..host.models.encoder import JpegEncodeError, JpegEncoder, _configure_rgb_e
 from ..host.models.geometry import ceil_div
 from ..host.syntax import huffman_standard
 from ..host.syntax.quantization import scale_by_quality, standard_luminance_table
-from ..ops import _build, encode_stage
+from ..ops import _build, encode_stage, kernels
 
 #: Inputs the device branch does not take through ``jitted_forward``.
 _UNPORTED_INPUTS = {
@@ -91,6 +91,12 @@ def coefficient_planes(encoder: JpegEncoder, *, device) -> List[np.ndarray]:
     max_h = max(c.h for c in comps)
     max_v = max(c.v for c in comps)
     comp_params = tuple((c.h, c.v, max_h // c.h, max_v // c.v) for c in comps)
+    hss, vss = kernels.BOX_FACTORS
+    if any(hs not in hss or vs not in vss for _, _, hs, vs in comp_params):
+        raise JpegEncodeError(
+            f"the device encode takes box factors {hss} x {vss}, not "
+            f"{[(hs, vs) for _, _, hs, vs in comp_params]}"
+        )
     outs = encode_stage.forward(
         planes, device_quants(encoder, device), comp_params,
         ceil_div(encoder._width, 8 * max_h), ceil_div(encoder._height, 8 * max_v),

@@ -6,14 +6,18 @@ with a plain C interface, cached by a hash of the sources and flags under
 the package's ``_build`` directory, and loaded with ctypes, the way
 ``host.native.build`` builds the scanner.
 Nothing here runs at import: the library is built by the first kernel
-launch, or by calling :func:`load_library`. A missing ``nvcc`` or a
-failed compile raises with the command line; there is no fallback.
+launch, or by calling :func:`load_library`. The build runs under an
+exclusive ``flock`` on a lock file in ``_build``, so the processes of one
+machine compile once and the others load that library. A missing
+``nvcc`` or a failed compile raises with the command line; there is no
+fallback.
 :func:`load_scanner` builds the host layers' native scanner the same way.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -40,8 +44,10 @@ _K1_ARGS = [
 ]
 _K2_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,  # plane, quant
-    ctypes.c_void_p, ctypes.c_void_p,  # matrix, out
+    ctypes.c_void_p, ctypes.c_void_p,  # bf16 split of the matrix, out
+    ctypes.c_int64, ctypes.c_int64,    # height, width (samples)
     ctypes.c_int64, ctypes.c_int64,    # height_blocks, width_blocks
+    ctypes.c_int, ctypes.c_int,        # hs, vs
     ctypes.c_int,                      # level_shift
     ctypes.c_void_p,                   # cudaStream_t
 ]
@@ -86,6 +92,14 @@ def build_library() -> pathlib.Path:
     so_path = out_dir / f"libjpxcuda-{h.hexdigest()[:16]}.so"
     if so_path.exists():
         return so_path
+    with open(so_path.with_name(f"{so_path.name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so_path.exists():
+            _compile(sources, so_path)
+    return so_path
+
+
+def _compile(sources, so_path: pathlib.Path) -> None:
     nvcc = find_nvcc()
     tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
     objs = [so_path.with_name(f"{so_path.stem}-{src.stem}.{os.getpid()}.o") for src in sources]
@@ -111,7 +125,6 @@ def build_library() -> pathlib.Path:
             obj.unlink(missing_ok=True)
     so_path.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so_path)
-    return so_path
 
 
 def load_scanner() -> ctypes.CDLL:

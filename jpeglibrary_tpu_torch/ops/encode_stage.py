@@ -3,11 +3,12 @@ coefficient planes.
 
 Port of ``jpeglibrary_tpu/ops/encode_stage.py`` (the parts the device
 encode runs, ``jitted_forward``): zero-pad to the MCU grid, box-filter
-subsample, then K2 (level shift + folded FDCT + zig-zag + quantize,
-``kernels.fdct_quantize``). The integer ops are bit-exact against the
-numpy originals; :func:`fdct_quantize` is the plain PyTorch version of
-K2 and, like the Pallas kernel it mirrors, is within 1 LSB of the
-butterfly FDCT.
+subsample, then level shift + folded FDCT + zig-zag + quantize. On the
+card all of it is K2 (``kernels.fdct_quantize``), one launch per
+component. The integer ops are bit-exact against the numpy originals;
+:func:`pad_to_grid` -> :func:`subsample_box` -> :func:`fdct_quantize` is
+the plain PyTorch version of K2 and, like the Pallas kernel it mirrors,
+is within 1 LSB of the butterfly FDCT.
 """
 
 from __future__ import annotations
@@ -75,11 +76,10 @@ def forward_component(plane: torch.Tensor, quant_zz: torch.Tensor, h: int, v: in
                       level_shift: int) -> torch.Tensor:
     """One component: [H, W] samples -> [mcus_per_column*v,
     mcus_per_line*h, 64] int16 zig-zag coefficients, on the plane's
-    device."""
-    full_h = mcus_per_column * v * 8 * vs
-    full_w = mcus_per_line * h * 8 * hs
-    padded = pad_to_grid(plane, full_h, full_w)
-    return kernels.fdct_quantize(subsample_box(padded, hs, vs), quant_zz, level_shift)
+    device. On a CUDA plane the zero pad to the MCU grid and the box
+    subsample run inside K2's load: one launch, no other kernel."""
+    return kernels.fdct_quantize(plane, quant_zz, level_shift, hs=hs, vs=vs,
+                                 blocks=(mcus_per_column * v, mcus_per_line * h))
 
 
 def forward(planes: Sequence, quants, comp_params: Sequence[Tuple[int, int, int, int]],

@@ -22,21 +22,25 @@ tensor. The Pallas wrapper padded to a 1024-block tile; the CUDA kernel,
 a persistent grid that stages 128-block tiles asynchronously, masks its
 ragged edge and nothing is padded.
 
-K2, the encode transform: level shift + 2-D FDCT + zig-zag + quantize,
-``rint(((s - level_shift) @ F) / q)`` with F the folded matrix of
-``host.ops.encode_stage.fdct_zigzag_matrix``. Port of the
-encode half of ``pallas_kernels.py``. :func:`fdct_quantize` launches
-``csrc/fdct_quant.cu`` on a CUDA plane, which reads the [Hp, Wp] sample
-plane itself instead of pre-cut blocks, and takes the plain version
-(``encode_stage.fdct_quantize``) only for a CPU tensor.
+K2, the encode transform: zero pad + box subsample + level shift + 2-D
+FDCT + zig-zag + quantize, ``rint(((s - level_shift) @ F) / q)`` with F
+the folded matrix of ``host.ops.encode_stage.fdct_zigzag_matrix``. Port
+of the encode half of ``pallas_kernels.py``, with the pad and subsample
+that the JAX package ran ahead of it fused in. :func:`fdct_quantize`
+launches ``csrc/fdct_quant.cu`` on a CUDA plane, which reads the
+unpadded [H, W] component plane itself and runs the product on the
+tensor cores with an exact bf16 split of F (:func:`fdct_split`), and
+takes the plain version (``encode_stage`` pad, subsample, fdct_quantize)
+only for a CPU tensor.
 """
 
 from __future__ import annotations
 
 import functools
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..host.ops.decode_stage import fused_transform_matrix, scaled_folded_matrix
@@ -140,19 +144,69 @@ def fdct_matrix(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(fdct_zigzag_matrix()).to(device)
 
 
-def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor,
-                  level_shift: int) -> torch.Tensor:
-    """[Hb*8, Wb*8] int32 (or uint8) sample plane + [64] int32 zig-zag
-    quant -> int16 zig-zag coefficients [Hb, Wb, 64].
+def fdct_split() -> torch.Tensor:
+    """The exact three-way bf16 split of K2's fp32 matrix F, [3, 64, 64]
+    (part, position, zig-zag): F1 = bf16(F), F2 = bf16(F - F1),
+    F3 = F - F1 - F2. F has 24 significant bits and bf16 8 with fp32's
+    exponent range, so F3 is exact in bf16 and F1 + F2 + F3 == F; both
+    are asserted in float64."""
+    f = torch.from_numpy(fdct_zigzag_matrix().astype(np.float64))
+    f1 = f.to(torch.bfloat16)
+    f2 = (f - f1.double()).to(torch.bfloat16)
+    f3 = (f - f1.double() - f2.double()).to(torch.bfloat16)
+    parts = torch.stack([f1, f2, f3])
+    if not torch.equal(parts.double().sum(0), f) or not torch.equal(
+            parts.double()[2], f - f1.double() - f2.double()):
+        raise AssertionError("the bf16 split of the FDCT matrix is not exact")
+    return parts
 
-    ``fdct_quantize.launches`` counts the CUDA kernel's launches."""
+
+@functools.lru_cache(maxsize=16)
+def fdct_split_operand(device: torch.device) -> torch.Tensor:
+    """:func:`fdct_split` as the kernel reads it: bf16 [3, 64, 64]
+    (part, zig-zag, position), each zig-zag column's 64 positions
+    contiguous (the B operand's column-major layout), on ``device``."""
+    return fdct_split().transpose(1, 2).contiguous().to(device)
+
+
+BOX_FACTORS = ((1, 2, 4), (1, 2))  # the hs and vs K2 takes
+
+
+def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int, *,
+                  hs: int = 1, vs: int = 1,
+                  blocks: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """[H, W] uint8 (or int32) component plane + [64] int32 zig-zag quant
+    -> int16 zig-zag coefficients [hb, wb, 64]: the plane zero-padded to
+    ``hb * 8 * vs`` rows and ``wb * 8 * hs`` columns, box-subsampled by
+    (hs, vs) with ``(sum + n // 2) // n``, n = hs * vs, then level
+    shift, FDCT, zig-zag and quantize.
+
+    ``blocks`` is (hb, wb), the component's block grid (by default the
+    least that covers the plane). int32 samples must lie within 2^16 of
+    ``level_shift`` (the 8- and 12-bit precisions do), where the kernel's
+    bf16 split is exact.
+
+    On a CPU plane it runs the plain version, ``encode_stage.pad_to_grid``
+    -> ``subsample_box`` -> ``fdct_quantize``; on a CUDA plane it launches
+    ``csrc/fdct_quant.cu``, which fuses the pad and the box into its load,
+    or raises. ``fdct_quantize.launches`` counts the kernel's launches."""
     if plane.dtype not in (torch.int32, torch.uint8):
         raise TypeError(f"samples must be int32 or uint8, got {plane.dtype}")
-    if plane.dim() != 2 or plane.shape[0] % 8 or plane.shape[1] % 8:
-        raise ValueError(
-            f"samples must be one [H, W] plane with H and W multiples of 8, "
-            f"got {tuple(plane.shape)}"
-        )
+    if plane.dim() != 2:
+        raise ValueError(f"samples must be one [H, W] plane, got {tuple(plane.shape)}")
+    if not plane.is_contiguous():
+        raise ValueError("the sample plane must be contiguous")
+    if hs not in BOX_FACTORS[0] or vs not in BOX_FACTORS[1]:
+        raise ValueError(f"(hs, vs) must be in {BOX_FACTORS[0]} x {BOX_FACTORS[1]}, "
+                         f"got ({hs}, {vs})")
+    if not 0 <= level_shift <= 1 << 15:
+        raise ValueError(f"level_shift must be in [0, 32768], got {level_shift}")
+    h, w = plane.shape
+    if blocks is None:
+        blocks = (-(-h // (8 * vs)), -(-w // (8 * hs)))
+    hb, wb = (int(b) for b in blocks)
+    if hb < 0 or wb < 0 or hb * 8 * vs < h or wb * 8 * hs < w:
+        raise ValueError(f"{hb} x {wb} blocks at ({hs}, {vs}) do not cover a {h} x {w} plane")
     if quant_zz.dtype != torch.int32 or tuple(quant_zz.shape) != (64,):
         raise ValueError(
             f"quant must be int32 [64], got {quant_zz.dtype} {tuple(quant_zz.shape)}"
@@ -160,24 +214,26 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor,
     if quant_zz.device != plane.device:
         raise ValueError(f"quant on {quant_zz.device}, samples on {plane.device}")
     device = plane.device
-    matrix = fdct_matrix(device)
     if device.type == "cpu":
-        return encode_stage.fdct_quantize(plane, quant_zz, level_shift, matrix)
+        padded = encode_stage.pad_to_grid(plane, hb * 8 * vs, wb * 8 * hs)
+        return encode_stage.fdct_quantize(encode_stage.subsample_box(padded, hs, vs),
+                                          quant_zz, level_shift, fdct_matrix(device))
     if device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {device}")
-    if not (plane.is_contiguous() and quant_zz.is_contiguous()):
-        raise ValueError("samples and quant must be contiguous")
+    if not quant_zz.is_contiguous():
+        raise ValueError("quant must be contiguous")
 
-    hb, wb = plane.shape[0] // 8, plane.shape[1] // 8
     out = torch.empty((hb, wb, 64), dtype=torch.int16, device=device)
     if out.numel() == 0:
         return out
+    split = fdct_split_operand(device)
     lib = _build.load_library()
     fn = lib.jpx_fdct_quant_i32 if plane.dtype == torch.int32 else lib.jpx_fdct_quant_u8
     with torch.cuda.device(device):
         err = fn(
-            plane.data_ptr(), quant_zz.data_ptr(), matrix.data_ptr(), out.data_ptr(),
-            hb, wb, int(level_shift), torch.cuda.current_stream(device).cuda_stream,
+            plane.data_ptr(), quant_zz.data_ptr(), split.data_ptr(), out.data_ptr(),
+            h, w, hb, wb, hs, vs, int(level_shift),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")

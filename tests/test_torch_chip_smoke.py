@@ -115,19 +115,49 @@ def test_exits_nonzero_without_cuda():
 
 
 # The bounds chip_smoke.py reports beside each kernel time: the larger of
-# the bytes at 3.35 TB/s and the fp32 operations at 67 TFLOP/s (an H100
-# SXM's published rates), at the main paths' shapes.
+# the bytes at 3.35 TB/s and the product at 989 TFLOP/s (bf16, dense) plus
+# the per-element operations at 67 TFLOP/s (an H100 SXM's published
+# rates), at the main paths' shapes.
 @pytest.mark.parametrize("kernel,args,want_us,by", [
     ("k1", (65536, 1, 8, 4), 10.02, "bytes"),      # one 4.2 MP Y plane, int32
     ("k1", (16384, 1, 8, 4), 2.51, "bytes"),       # one chroma plane
-    ("k1", (65536, 1, 8, 2), 8.14, "operations"),  # int16 coefficients
+    ("k1", (65536, 1, 8, 2), 7.52, "bytes"),       # int16 coefficients
     ("k1", (8 * 65536, 8, 8, 4), 80.14, "bytes"),  # a group of 8 Y planes
     ("k1", (65536, 1, 4, 4), 6.26, "bytes"),       # thumbnails at 1/2, 1/4, 1/8
     ("k1", (65536, 1, 2, 4), 5.32, "bytes"),
     ("k1", (65536, 1, 1, 4), 5.09, "bytes"),
-    ("k2", (65536, 4), 8.14, "operations"),
+    ("k2", (65536, 4), 7.52, "bytes"),             # 12-bit int32 samples
+    ("k2", (65536, 1), 3.76, "bytes"),             # the Y plane, uint8
+    ("k2", (16384, 1, 2048 * 2048), 1.88, "bytes"),  # a 2048x2048 chroma plane at 2x2
 ])
 def test_kernel_bounds(smoke, kernel, args, want_us, by):
     ms, bound_by = (smoke.k1_bound if kernel == "k1" else smoke.k2_bound)(*args)
     assert bound_by == by
     assert abs(ms * 1e3 - want_us) < 0.01, ms * 1e3
+
+
+@pytest.fixture(scope="module")
+def k2_probe():
+    spec = importlib.util.spec_from_file_location("k2_probe", ROOT / "tools" / "k2_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("variant", ["whole kernel", "no MMAs", "multiply for divide",
+                                     "no product or epilogue", "copies and stores only",
+                                     "timeline"])
+def test_k2_probe_cuts_apply_to_the_kernel_source(k2_probe, variant):
+    """tools/k2_probe.py times K2 with parts cut out by text substitutions
+    on csrc/fdct_quant.cu: each must still find its text exactly once."""
+    subs = k2_probe.TIMELINE if variant == "timeline" else k2_probe.CUT[variant]
+    text = k2_probe.variant_source(subs)
+    assert "fdct_quant_kernel" in text
+    assert all(new in text for _, new in subs)
+
+
+def test_k2_probe_exits_nonzero_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / "k2_probe.py")], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "parts:" not in r.stdout

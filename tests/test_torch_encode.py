@@ -323,3 +323,164 @@ def test_wrapper_rejects_bad_inputs():
         kernels.fdct_quantize(p, q.to(torch.int64), 128)
     with pytest.raises(ValueError):
         kernels.fdct_quantize(p.to("meta"), q.to("meta"), 128)
+
+
+# --- K2's fused pad and box subsample -------------------------------------
+
+SAMPLE_KINDS = [(np.uint8, 128), (np.int32, 128), (np.int32, 2048)]
+BOXES = [(1, 1), (2, 2), (2, 1), (1, 2), (4, 1)]
+
+
+def _kind_samples(shape, dtype, level_shift, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2 * level_shift, size=shape).astype(dtype)
+
+
+@pytest.mark.parametrize("h,w,extra", [(37, 53, 1), (211, 333, 0)])
+@pytest.mark.parametrize("hs,vs", BOXES)
+@pytest.mark.parametrize("dtype,level_shift", SAMPLE_KINDS)
+def test_wrapper_fuses_pad_and_subsample(dtype, level_shift, hs, vs, h, w, extra):
+    """On a CPU plane the wrapper is the composition pad_to_grid ->
+    subsample_box -> plain fdct_quantize, bit for bit, over a block grid
+    that may reach past the plane (``extra`` block rows of zeros)."""
+    plane = torch.from_numpy(_kind_samples((h, w), dtype, level_shift, seed=h + hs * 10 + vs))
+    quant = torch.from_numpy(_quant(hs + vs))
+    hb, wb = -(-h // (8 * vs)) + extra, -(-w // (8 * hs))
+    before = kernels.fdct_quantize.launches
+    got = kernels.fdct_quantize(plane, quant, level_shift, hs=hs, vs=vs, blocks=(hb, wb))
+    assert kernels.fdct_quantize.launches == before
+    padded = encode_stage.pad_to_grid(plane, hb * 8 * vs, wb * 8 * hs)
+    want = encode_stage.fdct_quantize(encode_stage.subsample_box(padded, hs, vs), quant,
+                                      level_shift, kernels.fdct_matrix(torch.device("cpu")))
+    assert got.dtype == torch.int16 and tuple(got.shape) == (hb, wb, 64)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hs,vs", BOXES)
+@pytest.mark.parametrize("dtype,level_shift", SAMPLE_KINDS)
+def test_wrapper_matches_jax_forward_component(dtype, level_shift, hs, vs):
+    """The same ragged plane through the JAX package's forward_component
+    (xp=jnp) and jitted_forward: within 1 on at most 1e-3 of the values."""
+    h, w = 211, 333
+    plane = _kind_samples((h, w), dtype, level_shift, seed=7 * hs + vs)
+    quant = _quant(30 + hs)
+    mpl, mpc = -(-w // (8 * hs)), -(-h // (8 * vs))
+    got = kernels.fdct_quantize(torch.from_numpy(plane), torch.from_numpy(quant), level_shift,
+                                hs=hs, vs=vs, blocks=(mpc, mpl)).numpy()
+    eager = ref_stage.forward_component(jnp.asarray(plane), jnp.asarray(quant), 1, 1, hs, vs,
+                                        mpl, mpc, xp=jnp, level_shift=float(level_shift))
+    (jitted,) = ref_stage.jitted_forward(((1, 1, hs, vs),), mpl, mpc, float(level_shift))(
+        (plane,), quant[None])
+    for want in (eager, jitted):
+        _assert_within_one(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("level_shift", LEVEL_SHIFTS)
+@pytest.mark.parametrize("hs,vs", BOXES)
+def test_wrapper_ties_round_half_to_even(hs, vs, level_shift):
+    """Blocks that are constant after the box (level_shift + s over each
+    hs x vs box) have DC 8s exactly; q = 16 makes an exact .5 for odd s,
+    which rounds to even, as the JAX package's jitted_forward does."""
+    s = np.arange(-128, 128)
+    plane = np.repeat(np.repeat((level_shift + s).reshape(16, 16), 8 * vs, 0), 8 * hs, 1)
+    plane = plane.astype(np.uint8 if level_shift == 128 else np.int32)
+    q16 = np.full(64, 16, np.int32)
+    got = kernels.fdct_quantize(torch.from_numpy(plane), torch.from_numpy(q16), level_shift,
+                                hs=hs, vs=vs).numpy()
+    np.testing.assert_array_equal(got.reshape(256, 64)[:, 0], np.rint(s / 2).astype(np.int16))
+    assert not got.reshape(256, 64)[:, 1:].any()
+    (want,) = ref_stage.jitted_forward(((1, 1, hs, vs),), 16, 16, float(level_shift))(
+        (plane,), q16[None])
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+# --- the bf16 split of the tensor-core product -----------------------------
+
+def _bf16_exact(x):
+    """x (float64) is representable in bf16."""
+    t = torch.from_numpy(np.asarray(x, np.float64))
+    return torch.equal(t.to(torch.bfloat16).double(), t)
+
+
+def _fp32_exact(x):
+    return np.array_equal(np.asarray(x, np.float64).astype(np.float32).astype(np.float64), x)
+
+
+@pytest.mark.parametrize("bits", [8, 12])
+@pytest.mark.parametrize("part", [0, 1, 2])
+def test_fdct_split_is_exact(part, bits):
+    """F1 + F2 + F3 == F in float64, each part in bf16; every level-shifted
+    sample splits as the kernel splits it (A_hi: the fp32 bits with the low
+    16 cleared, A_lo = a - A_hi), both exact in bf16, and every partial
+    product A_x * F_k is exact in fp32."""
+    f = ref_stage.fdct_zigzag_matrix().astype(np.float64)
+    parts = kernels.fdct_split()
+    assert parts.dtype == torch.bfloat16 and tuple(parts.shape) == (3, 64, 64)
+    p64 = parts.double().numpy()
+    np.testing.assert_array_equal(p64[0] + p64[1] + p64[2], f)
+    assert _bf16_exact(p64[part])
+    half = 1 << (bits - 1)
+    a = np.arange(-half, half).astype(np.float32)
+    a_hi = (a.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32).astype(np.float64)
+    a_lo = a.astype(np.float64) - a_hi
+    assert _bf16_exact(a_hi) and _bf16_exact(a_lo)
+    if bits == 8:
+        assert not a_lo.any()  # one pass of A at 8 bits
+    for x in (a_hi, a_lo):
+        assert _fp32_exact(x[:, None] * p64[part].reshape(1, -1))
+
+
+def test_fdct_split_operand_is_column_major():
+    split = kernels.fdct_split()
+    operand = kernels.fdct_split_operand(torch.device("cpu"))
+    assert operand.is_contiguous() and torch.equal(operand, split.transpose(1, 2))
+
+
+def _bad_k2_call(kind):
+    p = torch.from_numpy(_samples((40, 56), 128, seed=2))
+    q = torch.from_numpy(_quant(2))
+    calls = {
+        "hs3": lambda: kernels.fdct_quantize(p, q, 128, hs=3),
+        "vs4": lambda: kernels.fdct_quantize(p, q, 128, vs=4),
+        "hs0": lambda: kernels.fdct_quantize(p, q, 128, hs=0),
+        "rows_short": lambda: kernels.fdct_quantize(p, q, 128, vs=2, blocks=(2, 7)),
+        "cols_short": lambda: kernels.fdct_quantize(p, q, 128, hs=2, blocks=(5, 3)),
+        "negative_blocks": lambda: kernels.fdct_quantize(p, q, 128, blocks=(-1, 7)),
+        "non_contiguous": lambda: kernels.fdct_quantize(p.t(), q, 128),
+        "level_shift": lambda: kernels.fdct_quantize(p, q, 1 << 16),
+    }
+    return calls[kind]
+
+
+@pytest.mark.parametrize("kind", ["hs3", "vs4", "hs0", "rows_short", "cols_short",
+                                  "negative_blocks", "non_contiguous", "level_shift"])
+def test_wrapper_rejects_bad_box_grid_or_layout(kind):
+    with pytest.raises(ValueError):
+        _bad_k2_call(kind)()
+
+
+def test_wrapper_takes_a_grid_larger_than_the_plane():
+    """blocks (5, 7) over a 40 x 56 plane at 1x1 is the plane itself;
+    more blocks add zero-padded ones, which hold -level_shift * 8 / q at
+    DC and nothing else."""
+    p = torch.from_numpy(_samples((40, 56), 128, seed=2))
+    q = torch.from_numpy(np.full(64, 4, np.int32))
+    tight = kernels.fdct_quantize(p, q, 128, blocks=(5, 7))
+    wide = kernels.fdct_quantize(p, q, 128, blocks=(6, 9))
+    assert torch.equal(wide[:5, :7], tight)
+    pad = torch.cat([wide[5:].reshape(-1, 64), wide[:5, 7:].reshape(-1, 64)])
+    assert (pad[:, 0] == -256).all() and not pad[:, 1:].any()
+
+
+def test_unsupported_box_factors_raise_encode_error():
+    """A component sampled 3x finer than another needs a box the device
+    encode does not take: it raises JpegEncodeError before any work."""
+    plane = _samples((24, 48), 128, seed=4)
+    encoder = jtt.JpegEncoder()
+    encoder.set_quantization_table(port_encoder.scale_by_quality(
+        port_encoder.standard_luminance_table(0), 80))
+    encoder.add_component(1, 0, 0, 0, 3, 1)
+    encoder.add_component(2, 0, 0, 0, 1, 1)
+    encoder.set_input([plane, plane])
+    with pytest.raises(jtt.JpegEncodeError):
+        port_encoder.coefficient_planes(encoder, device="cpu")
