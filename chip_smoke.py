@@ -63,13 +63,32 @@ images through ``encode_rgb(..., device="cuda")``. In order:
    against the source; the device stage is 3 K2 kernels and nothing else
    (``torch.profiler``); then where an image's encode time goes (host
    colour conversion, upload, device stage, download, host emission) and
-   the median per image end to end.
+   the median per image end to end;
+9. K2 at the boxes of T.81's rarer sampling factors (K2_BOXES: a
+   component 3 or 4 times finer than another), uint8 and 12-bit int32, on
+   a 2048x2048 plane and a ragged 2047x1999 one (int32 samples below zero
+   at 3x3 too, where the box division floors), against the plain version
+   and timed as in 3; then the path: ``jtt.encode`` of a 2-component
+   encoder whose second component takes each box, 8- and 12-bit, one K2
+   launch per box, the planes within 1 of the CPU path's;
+10. CMYK: ``encode_cmyk`` of a 2048x2048 ink image, plain CMYK and YCCK
+   4:2:0, 4 K2 launches each, against the CPU path as in 8;
+11. fancy: ``to_rgb8_device(upsample="fancy")`` of the 8 images, 3 K1
+   launches each, against the CPU path (<= 2 levels on <= 1e-4);
+12. u16: ``transform_mcu2(output="u16")`` of the 8 images, 3 K1 launches
+   each, against the CPU path compared as samples (``>> 8`` within 1 on
+   <= 1e-4);
+13. stripes: ``decode_rgb_stripes`` of one image at 16 MCU rows, 8
+   stripes of 3 K1 launches each, bit-equal when concatenated to the
+   card's ``to_rgb8_device``; the peak device memory of the stripe walk
+   beside the full decode's (``torch.cuda.max_memory_allocated``).
 
 Each phase sets the kernels' launch counts to 0 just before the path it
 drives and reads them just after. Any failure raises and the script
 exits non-zero. The line before the last is a JSON record of the
-kernels (K1, one entry per K1 variant, K2: launches on the main paths,
-kernel time, plain and library time, bound); the last line is
+kernels (K1, one entry per K1 variant, K2 and one entry per K2 box of
+9: launches on the main paths, kernel time, plain and library time,
+bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
 of this repo only the port, ``jpeglibrary_tpu_torch``.
@@ -226,6 +245,7 @@ def reset_counts():
 
     kernels.dequantize_idct_shift.launches = 0
     kernels.fdct_quantize.launches = 0
+    kernels.fdct_quantize.launches_by_box.clear()
 
 
 def check_close(got, want, what, share=1e-4):
@@ -466,13 +486,66 @@ def k2_plain(plane, quant, ls, hs, vs, matrix):
                                       matrix)
 
 
+def k2_check(label, plane, quant, ls, hs, vs, matrix):
+    """K2 against its plain version on one plane: within 1 on <= 1e-3 of
+    the values; returns the largest difference."""
+    from jpeglibrary_tpu_torch.ops import kernels
+
+    got = kernels.fdct_quantize(plane, quant, ls, hs=hs, vs=vs)
+    want = k2_plain(plane, quant, ls, hs, vs, matrix)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == torch.int16,
+          (label, tuple(got.shape), got.dtype))
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    max_abs = int(diff.max())
+    share = float((diff > 0).double().mean())
+    log(f"kernel: K2 vs plain, {label} ({want.shape[0] * want.shape[1]} blocks), level shift "
+        f"{ls}: max |diff| {max_abs}, differing share {share:.3e}")
+    check(max_abs <= 1 and share <= 1e-3, (label, max_abs, share))
+    return max_abs
+
+
+def k2_times(label, plane, quant, ls, hs, vs, matrix, flush, events=False):
+    """K2, its plain version and one ``torch.matmul`` of the subsampled,
+    level-shifted blocks cut beforehand, in kernel time warm and with the
+    L2 flushed (and with ``events`` in CUDA events too); logs them,
+    returns the flushed (plain, K2, matmul) ms and K2's bound."""
+    from jpeglibrary_tpu_torch.ops import encode_stage, kernels
+
+    h, w = plane.shape
+    hb, wb = -(-h // (8 * vs)), -(-w // (8 * hs))
+    sub = encode_stage.subsample_box(
+        encode_stage.pad_to_grid(plane, hb * 8 * vs, wb * 8 * hs), hs, vs)
+    blocks = (sub.to(torch.float32) - ls).reshape(hb, 8, wb, 8).permute(0, 2, 1, 3)
+    blocks = blocks.reshape(-1, 64).contiguous()
+    fns = (
+        lambda: k2_plain(plane, quant, ls, hs, vs, matrix),
+        lambda: kernels.fdct_quantize(plane, quant, ls, hs=hs, vs=vs),
+        lambda: torch.matmul(blocks, matrix),
+    )
+    if events:
+        p_ev, k_ev, lib_ev = device_ms(*fns)
+        log(f"kernel: K2 {label}, CUDA events around each call (launch gaps included): K2 "
+            f"{k_ev:.6f} ms, plain {p_ev:.6f} ms, torch.matmul {lib_ev:.6f} ms (median of "
+            f"{TIMED_RUNS} in turns)")
+    warm = kernel_ms(*fns)
+    cold = kernel_ms(*fns, flush=flush)
+    b_ms, b_by = k2_bound(hb * wb, plane.element_size(), h * w)
+    for what, (p_ms, k_ms, lib_ms) in (("warm", warm), ("L2 flushed", cold)):
+        log(f"kernel: K2 {label}, {what}: K2 {k_ms:.6f} ms ({b_ms / k_ms:.1%} of its "
+            f"{b_by} bound {b_ms:.6f} ms), plain (pad, subsample, fdct_quantize) "
+            f"{p_ms:.6f} ms, torch.matmul of the pre-cut fp32 blocks {lib_ms:.6f} ms "
+            f"(kernel time, mean of {TIMED_RUNS} in turns)")
+    return cold, b_ms, b_by
+
+
 def phase_kernel_fdct(dev):
     """K2 against its plain version on the card at K2_SHAPES and on exact
     ties; each shape timed warm and with the L2 flushed, beside the plain
     version and one ``torch.matmul`` of the subsampled, level-shifted
     blocks cut beforehand (full fp32, the product cuBLAS computes).
     Returns the record, with the Y plane's flushed times."""
-    from jpeglibrary_tpu_torch.ops import encode_stage, kernels
+    from jpeglibrary_tpu_torch.ops import kernels
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     matrix = kernels.fdct_matrix(dev)
@@ -482,49 +555,15 @@ def phase_kernel_fdct(dev):
     for label, h, w, dtype, ls, hs, vs in K2_SHAPES:
         plane = torch.from_numpy(rng.integers(0, 2 * ls, size=(h, w))).to(dtype).to(dev)
         quant = torch.from_numpy(rng.integers(1, 256, size=64).astype(np.int32)).to(dev)
-        got = kernels.fdct_quantize(plane, quant, ls, hs=hs, vs=vs)
-        want = k2_plain(plane, quant, ls, hs, vs, matrix)
-        torch.cuda.synchronize()
-        n = want.shape[0] * want.shape[1]
-        check(got.shape == want.shape and got.dtype == torch.int16,
-              (label, tuple(got.shape), got.dtype))
-        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
-        max_abs = int(diff.max())
-        share = float((diff > 0).double().mean())
-        log(f"kernel: K2 vs plain, {label} ({n} blocks), level shift {ls}: max |diff| "
-            f"{max_abs}, differing share {share:.3e}")
-        check(max_abs <= 1 and share <= 1e-3, (label, max_abs, share))
-        worst = max(worst, max_abs)
-
-        hb, wb = want.shape[:2]
-        sub = encode_stage.subsample_box(
-            encode_stage.pad_to_grid(plane, hb * 8 * vs, wb * 8 * hs), hs, vs)
-        blocks = (sub.to(torch.float32) - ls).reshape(hb, 8, wb, 8).permute(0, 2, 1, 3)
-        blocks = blocks.reshape(-1, 64).contiguous()
-        fns = (
-            lambda: k2_plain(plane, quant, ls, hs, vs, matrix),
-            lambda: kernels.fdct_quantize(plane, quant, ls, hs=hs, vs=vs),
-            lambda: torch.matmul(blocks, matrix),
-        )
-        p_ev, k_ev, lib_ev = device_ms(*fns)
-        warm = kernel_ms(*fns)
-        cold = kernel_ms(*fns, flush=flush)
-        b_ms, b_by = k2_bound(n, plane.element_size(), h * w)
-        log(f"kernel: K2 {label}, CUDA events around each call (launch gaps included): K2 "
-            f"{k_ev:.6f} ms, plain {p_ev:.6f} ms, torch.matmul {lib_ev:.6f} ms (median of "
-            f"{TIMED_RUNS} in turns)")
-        for what, (p_ms, k_ms, lib_ms) in (("warm", warm), ("L2 flushed", cold)):
-            log(f"kernel: K2 {label}, {what}: K2 {k_ms:.6f} ms ({b_ms / k_ms:.1%} of its "
-                f"{b_by} bound {b_ms:.6f} ms), plain (pad, subsample, fdct_quantize) "
-                f"{p_ms:.6f} ms, torch.matmul of the pre-cut fp32 blocks {lib_ms:.6f} ms "
-                f"(kernel time, mean of {TIMED_RUNS} in turns)")
+        worst = max(worst, k2_check(label, plane, quant, ls, hs, vs, matrix))
+        (p_ms, k_ms, lib_ms), b_ms, b_by = k2_times(label, plane, quant, ls, hs, vs, matrix,
+                                                    flush, events=True)
         if record is None:  # the Y plane, the first shape
-            p_ms, k_ms, lib_ms = cold
             record = {"name": "fdct_quantize", "route": "cuda", "source": K2_SOURCE,
                       "replaces": K2_REPLACES, "launches": None, "max_abs_err": None,
                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lib_ms}
-        del plane, got, want, diff, sub, blocks
+        del plane
     del flush
 
     # Exact ties: blocks constant after the box, level shift + s, have DC 8s
@@ -546,6 +585,277 @@ def phase_kernel_fdct(dev):
         "version")
     record["max_abs_err"] = worst
     return record
+
+
+# K2 at the boxes only T.81's rarer sampling factors give, a component 3 or
+# 4 times finer than another (hs, vs), for 8-bit uint8 and 12-bit int32
+# samples: (record key suffix, dtype, level shift).
+K2_BOXES = ((3, 1), (1, 3), (3, 3), (4, 3), (4, 4))
+K2_BOX_KINDS = (("u8", torch.uint8, 128), ("i32", torch.int32, 2048))
+
+
+def phase_k2_boxes(dev):
+    """K2 at K2_BOXES against its plain version on the card: each box and
+    sample type on a 2048x2048 plane and a ragged 2047x1999 one, and at 3x3
+    on int32 samples down to -30000, whose box sums fall below zero; each
+    timed on the 2048x2048 plane. Returns one record per box and type."""
+    from jpeglibrary_tpu_torch.ops import encode_stage, kernels
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    matrix = kernels.fdct_matrix(dev)
+    rng = np.random.default_rng(5678)
+    records = {}
+    for hs, vs in K2_BOXES:
+        for suffix, dtype, ls in K2_BOX_KINDS:
+            label = f"{hs}x{vs} {dtype}".replace("torch.", "")
+            quant = torch.from_numpy(rng.integers(1, 256, size=64).astype(np.int32)).to(dev)
+            ragged = torch.from_numpy(rng.integers(0, 2 * ls, size=(2047, 1999))).to(dtype)
+            worst = k2_check(f"ragged 2047x1999 {label}", ragged.to(dev), quant, ls, hs, vs,
+                             matrix)
+            if dtype == torch.int32 and (hs, vs) == (3, 3):
+                signed = torch.from_numpy(
+                    rng.integers(-30000, 30000, size=(2047, 1999)).astype(np.int32)).to(dev)
+                hb, wb = -(-2047 // 24), -(-1999 // 24)
+                sums = encode_stage.subsample_box(
+                    encode_stage.pad_to_grid(signed, hb * 24, wb * 24), 3, 3)
+                log(f"kernel: K2 3x3 int32 samples in [-30000, 30000): "
+                    f"{float((sums < 0).double().mean()):.3f} of the boxes are negative")
+                worst = max(worst, k2_check(f"ragged 2047x1999 {label}, signed samples",
+                                            signed, quant, ls, hs, vs, matrix))
+                del signed, sums
+            plane = torch.from_numpy(rng.integers(0, 2 * ls, size=(SIZE, SIZE))).to(dtype).to(dev)
+            worst = max(worst, k2_check(f"{SIZE}x{SIZE} {label}", plane, quant, ls, hs, vs,
+                                        matrix))
+            (p_ms, k_ms, lib_ms), b_ms, b_by = k2_times(f"{SIZE}x{SIZE} {label}", plane, quant,
+                                                        ls, hs, vs, matrix, flush)
+            records[(dtype, hs, vs)] = {
+                "name": f"fdct_quantize[{hs}x{vs} {suffix}]", "route": "cuda",
+                "source": K2_SOURCE, "replaces": K2_REPLACES, "launches": None,
+                "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}
+            del plane, ragged
+    del flush
+    # Exact ties at the new boxes, as in phase_kernel_fdct.
+    s = np.arange(-128, 128)
+    want_dc = torch.from_numpy(np.rint(s / 2).astype(np.int16))
+    q16 = torch.full((64,), 16, dtype=torch.int32, device=dev)
+    for hs, vs in K2_BOXES:
+        for _, dtype, ls in K2_BOX_KINDS:
+            plane = np.repeat(np.repeat((ls + s).reshape(16, 16), 8 * vs, 0), 8 * hs, 1)
+            plane = torch.from_numpy(plane).to(dtype).to(dev)
+            got = kernels.fdct_quantize(plane, q16, ls, hs=hs, vs=vs).reshape(256, 64).cpu()
+            check(torch.equal(got[:, 0], want_dc) and not got[:, 1:].any(),
+                  ("ties", hs, vs, dtype))
+    log(f"kernel: K2 exact ties at boxes {K2_BOXES}, uint8 and int32: all round half to even")
+    return records
+
+
+def box_encoder(planes, hs, vs, precision):
+    """A 2-component encoder whose second component is sampled hs x vs
+    coarser than the first (luma (hs, vs), chroma 1x1), with optimized
+    Huffman tables: the layout whose chroma plane K2 boxes by (hs, vs)."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.host.syntax.quantization import (
+        scale_by_quality,
+        standard_luminance_table,
+    )
+
+    encoder = jtt.JpegEncoder()
+    encoder.sample_precision = precision
+    encoder.set_quantization_table(scale_by_quality(standard_luminance_table(0), 75))
+    encoder.set_huffman_table(True, 0)
+    encoder.set_huffman_table(False, 0)
+    encoder.add_component(1, 0, 0, 0, hs, vs)
+    encoder.add_component(2, 0, 0, 0, 1, 1)
+    encoder.set_input(planes)
+    return encoder
+
+
+def check_encode_planes(label, encoder, data, dev):
+    """The card's coefficient planes of ``encoder`` within 1 of the CPU
+    path's on <= 1e-3 of the values, ``data`` its emission, and equal to
+    the CPU path's bytes wherever the planes are equal."""
+    from jpeglibrary_tpu_torch.models import encoder as port_encoder
+
+    card = port_encoder.coefficient_planes(encoder, device=dev)
+    cpu = port_encoder.coefficient_planes(encoder, device="cpu")
+    n_diff = n_all = max_abs = 0
+    for g, w in zip(card, cpu):
+        d = np.abs(g.astype(np.int32) - w)
+        n_diff += int((d > 0).sum())
+        n_all += d.size
+        max_abs = max(max_abs, int(d.max()))
+    check(port_encoder.emit(encoder, card) == data, (label, "the planes emit other bytes"))
+    same = n_diff == 0 and port_encoder.emit(encoder, cpu) == data
+    log(f"{label}: coefficients vs CPU path max |diff| {max_abs}, {n_diff}/{n_all} differ; "
+        f"bytes {'equal to' if same else 'differ from'} the CPU path's")
+    check(max_abs <= 1 and n_diff <= n_all * 1e-3, (label, max_abs, n_diff))
+    check(n_diff > 0 or same, (label, "equal planes, other bytes"))
+
+
+def phase_encode_boxes(records, sources, dev):
+    """The device encode through every box of K2_BOXES: ``jtt.encode`` of
+    box_encoder over two 2048x2048 planes, at 8 and 12 bits; one K2 launch
+    for each (sample type, box), the planes against the CPU path."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.ops import kernels
+
+    y, c = sources[0][..., 0], sources[0][..., 1]
+    jobs = []
+    for hs, vs in K2_BOXES:
+        for precision in (8, 12):
+            planes = [y, c] if precision == 8 else [y.astype(np.int32) * 16,
+                                                    c.astype(np.int32) * 16]
+            jobs.append((hs, vs, precision, box_encoder(planes, hs, vs, precision)))
+    reset_counts()
+    datas = [jtt.encode(enc, device=dev) for _, _, _, enc in jobs]
+    by_box = dict(kernels.fdct_quantize.launches_by_box)
+    log(f"encode boxes: {len(jobs)} encodes, K2 launches by (dtype, hs, vs): "
+        + ", ".join(f"{str(k[0]).replace('torch.', '')} {k[1]}x{k[2]}: {n}"
+                    for k, n in sorted(by_box.items(), key=str)))
+    for key, rec in records.items():
+        launches = by_box.get(key, 0)
+        check(launches == 1, (rec["name"], "launches", launches))
+        rec["launches"] = launches
+    for (hs, vs, precision, enc), data in zip(jobs, datas):
+        res = jtt.decode(data)
+        check((res.width, res.height) == (SIZE, SIZE), (hs, vs, res.width, res.height))
+        check_encode_planes(f"encode boxes: luma {hs}x{vs}, {precision}-bit, {len(data)} bytes",
+                            enc, data, dev)
+
+
+def phase_cmyk(sources, dev):
+    """``encode_cmyk`` on the card, plain CMYK (1x1) and YCCK 4:2:0, of
+    one 2048x2048 ink image: 4 K2 launches each, the planes against the
+    CPU path. Returns the launches."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.models import encoder as port_encoder
+    from jpeglibrary_tpu_torch.ops import kernels
+
+    ink = np.concatenate([sources[1], sources[2][..., :1]], axis=-1)
+    jobs = (("CMYK", {}), ("YCCK 4:2:0", {"ycck": True, "subsampling": "420"}))
+    reset_counts()
+    datas = [jtt.encode_cmyk(ink, 75, device=dev, **kw) for _, kw in jobs]
+    launches = kernels.fdct_quantize.launches
+    log(f"cmyk: encode_cmyk of a {SIZE}x{SIZE} ink image, CMYK and YCCK: K2 launches {launches}")
+    check(launches == 4 * len(jobs), f"K2 launches {launches}")
+    for (label, kw), data in zip(jobs, datas):
+        fidelity = psnr(jtt.decode(data).to_cmyk8(), ink)
+        log(f"cmyk: {label}: {len(data)} bytes, PSNR of the decoded ink {fidelity:.2f} dB")
+        check(fidelity >= MIN_PSNR_DB, (label, fidelity))
+        check_encode_planes(f"cmyk: {label}", port_encoder.cmyk_encoder(ink, 75, **kw), data,
+                            dev)
+    med = warm_median_s(lambda: jtt.encode_cmyk(ink, 75, device=dev, ycck=True))
+    log(f"cmyk: encode_cmyk YCCK 4:2:0 median {med * 1e3:.6f} ms of {STREAM_RUNS} warm runs")
+    return launches
+
+
+def check_u16_close(got, want, precision, what):
+    """u16 outputs compared as samples (``>> (16 - precision)``): within 1
+    on <= 1e-4; a sample one below 0, which the writer wraps to the top
+    against the other's 0, counts as the 1-LSB difference it is."""
+    check(got.shape == want.shape and got.dtype == want.dtype == np.uint16,
+          (what, got.shape, want.shape, got.dtype))
+    shift = 16 - precision
+    a, b = got.astype(np.int64) >> shift, want.astype(np.int64) >> shift
+    top = (1 << precision) - 1
+    wrapped = ((a == top) & (b == 0)) | ((a == 0) & (b == top))
+    d = np.where(wrapped, 1, np.abs(a - b))
+    n_diff = int((d > 0).sum())
+    log(f"{what}: max sample |diff| {int(d.max())}, {n_diff}/{d.size} samples differ")
+    check(d.max() <= 1 and n_diff <= d.size * 1e-4, (what, int(d.max()), n_diff))
+
+
+def phase_fancy_u16(sl, dev):
+    """Fancy upsampling and the u16 output of the 8 images on the card,
+    each against the port's CPU path, 3 K1 launches an image."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.models.decoder import quant_tables
+    from jpeglibrary_tpu_torch.ops import kernels
+    from jpeglibrary_tpu_torch.parallel.batch import scan
+
+    results = [scan(d) for d in sl["datas"]]
+    gold = [jtt.to_rgb8_device(r, device="cpu", upsample="fancy").numpy() for r in results]
+    reset_counts()
+    outs = [jtt.to_rgb8_device(r, device=dev, upsample="fancy") for r in results]
+    torch.cuda.synchronize()
+    launches = kernels.dequantize_idct_shift.launches
+    log(f"fancy: to_rgb8_device(upsample='fancy') of {N_IMAGES} images: K1 launches {launches}")
+    check(launches == 3 * N_IMAGES, f"K1 launches {launches}")
+    for i, (out, g) in enumerate(zip(outs, gold)):
+        check(out.dtype == torch.uint8 and tuple(out.shape) == (3, SIZE, SIZE), out.shape)
+        check_close(out.cpu().numpy(), g, f"fancy: image {i} vs CPU path")
+        d = np.abs(out.cpu().numpy().astype(np.int16) - sl["outs"][i].cpu().numpy())
+        log(f"fancy: image {i}: {float((d > 0).mean()):.3f} of the values differ from the "
+            "duplicate upsampling's")
+    fancy_ms = wall_ms(lambda: [jtt.to_rgb8_device(r, device=dev, upsample="fancy")
+                                for r in results], runs=5)
+    dup_ms = wall_ms(lambda: [jtt.to_rgb8_device(r, device=dev) for r in results], runs=5)
+    log(f"fancy: {N_IMAGES} images, fancy {fancy_ms / N_IMAGES:.6f} ms per image, duplicate "
+        f"{dup_ms / N_IMAGES:.6f} ms per image (host clock to a synchronised result, "
+        "median of 5)")
+
+    def u16(r, device):
+        return jtt.transform_mcu2(r.packed_mcu2, quant_tables(r), r.geometry, device,
+                                  output="u16")
+
+    gold = [u16(r, "cpu").numpy() for r in results]
+    reset_counts()
+    outs = [u16(r, dev) for r in results]
+    torch.cuda.synchronize()
+    launches = kernels.dequantize_idct_shift.launches
+    log(f"u16: transform_mcu2(output='u16') of {N_IMAGES} images: K1 launches {launches}; "
+        f"dtype {outs[0].dtype} on torch {torch.__version__}")
+    check(launches == 3 * N_IMAGES, f"K1 launches {launches}")
+    for i, (out, g) in enumerate(zip(outs, gold)):
+        check(out.dtype == torch.uint16 and tuple(out.shape) == (SIZE, SIZE, 3), out.shape)
+        check_u16_close(out.cpu().numpy(), g, 8, f"u16: image {i} vs CPU path")
+
+
+def phase_stripes(sl, dev):
+    """The stripe walk of one image at 16 MCU rows against the card's full
+    decode: 8 stripes, 3 K1 launches each, bit-equal when concatenated;
+    the peak device memory of each."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.ops import kernels
+    from jpeglibrary_tpu_torch.parallel.batch import scan
+
+    data = sl["datas"][0]
+    res = scan(data)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full = jtt.to_rgb8_device(res, device=dev)
+    torch.cuda.synchronize()
+    full_peak = torch.cuda.max_memory_allocated() - base
+    full = full.cpu()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stripes = []
+    for y0, stripe in jtt.decode_rgb_stripes(data, device=dev, stripe_mcu_rows=16):
+        check(y0 == sum(s.shape[1] for s in stripes), ("stripe y0", y0))
+        check(stripe.device.type == dev.type and stripe.dtype == torch.uint8, stripe.device)
+        stripes.append(stripe.cpu())  # the consumer takes each stripe off the card
+    torch.cuda.synchronize()
+    stripe_peak = torch.cuda.max_memory_allocated() - base
+    launches = kernels.dequantize_idct_shift.launches
+    log(f"stripes: decode_rgb_stripes(stripe_mcu_rows=16) of a {SIZE}x{SIZE} 4:2:0 image: "
+        f"{len(stripes)} stripes of {stripes[0].shape[1]} rows, K1 launches {launches}")
+    check(len(stripes) == SIZE // 256 and launches == 3 * len(stripes), (len(stripes), launches))
+    check(torch.equal(torch.cat(stripes, dim=1), full), "the stripes differ from the full decode")
+    log(f"stripes: concatenated stripes equal the card's full to_rgb8_device; peak device "
+        f"memory above the start (torch.cuda.max_memory_allocated): stripe walk "
+        f"{stripe_peak} B, full decode {full_peak} B ({stripe_peak / full_peak:.3f} of it)")
+    walk_s = warm_median_s(lambda: [s for _, s in jtt.decode_rgb_stripes(
+        data, device=dev, stripe_mcu_rows=16)])
+    full_s = warm_median_s(lambda: jtt.to_rgb8_device(scan(data), device=dev))
+    log(f"stripes: stripe walk median {walk_s * 1e3:.6f} ms, full decode (scan + transform) "
+        f"median {full_s * 1e3:.6f} ms, host clock, {STREAM_RUNS} warm runs")
+    return launches
 
 
 def synth_image(seed, size):
@@ -968,8 +1278,7 @@ def phase_encode(record, sources, dev):
             secs.append(time.perf_counter() - start)
         return datas, secs
 
-    kernels.dequantize_idct_shift.launches = 0
-    kernels.fdct_quantize.launches = 0
+    reset_counts()
     datas, secs1 = run()
     launches = kernels.fdct_quantize.launches
     log(f"encode: run 1, {len(jobs)} images ({N_IMAGES} q75 4:2:0, one more with "
@@ -1082,7 +1391,14 @@ def main():
     phase_wires(records, sl, dev)
     phase_thumbnails(records, sl, dev)
     phase_encode(record_k2, sl["sources"], dev)
-    print(json.dumps({"kernels": [*records.values(), record_k2]}))
+    box_records = phase_k2_boxes(dev)
+    phase_encode_boxes(box_records, sl["sources"], dev)
+    cmyk_launches = phase_cmyk(sl["sources"], dev)
+    phase_fancy_u16(sl, dev)
+    stripe_launches = phase_stripes(sl, dev)
+    log(f"K1 launches on the later paths: fancy {3 * N_IMAGES}, u16 {3 * N_IMAGES}, "
+        f"stripes {stripe_launches}; K2 on the CMYK path {cmyk_launches}")
+    print(json.dumps({"kernels": [*records.values(), record_k2, *box_records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,41 +1,66 @@
-"""jpeglibrary_tpu_torch — the serving decode and the device encode of
-jpeglibrary_tpu in PyTorch, with hand-written CUDA kernels for NVIDIA
-Hopper.
+"""jpeglibrary_tpu_torch — jpeglibrary_tpu in PyTorch on one device, with
+hand-written CUDA kernels for NVIDIA Hopper.
 
 The package imports nothing of ``jpeglibrary_tpu``. Its host layers
 (container parsing, the native entropy scanner and emitter, frame
-geometry, the host decoder and encoder, the encoder's tables) are its
-own copy of the JAX package's JAX-free host code, under ``host/``. The
-rest is the device side: for the decode, the densify of every wire (v2
-split-stream, v1 MCU, v1 plane-order, dense planes), the K1 dequantize +
-IDCT kernel (``csrc/dequant_idct.cu``, full size or reduced for
-thumbnails, one quant table per image of a batch), upsampling and colour
-conversion, and the batched and streaming pipelines; for the encode,
-padding, box subsampling and the K2 FDCT + quantize kernel
-(``csrc/fdct_quant.cu``). Every entry point takes an explicit
+geometry, the host decoders and encoders, the optimizer, transcoder and
+region decode) are its own copy of the JAX package's JAX-free host code,
+under ``host/``. The rest is the device side: for the decode, the densify
+of every wire (v2 split-stream, v1 MCU, v1 plane-order, dense planes),
+the K1 dequantize + IDCT kernel (``csrc/dequant_idct.cu``, full size or
+reduced for thumbnails, one quant table per image of a batch), duplicate
+or fancy upsampling, colour conversion or the 16-bit writer, and the
+batched, streaming and stripe pipelines; for the encode, the K2 pad + box
+subsample + FDCT + quantize kernel (``csrc/fdct_quant.cu``) behind the RGB,
+gray and CMYK/YCCK encoders. Every device entry point takes an explicit
 ``device``; CPU tensors run the kernels' plain PyTorch versions, CUDA
-tensors the kernels. ``decode``, ``JpegDecoder``, ``DecodeResult``,
-``JpegEncoder`` and the two error classes are the host layers', under
-the JAX package's names.
+tensors the kernels.
+
+``__all__`` holds the JAX package's public names, each the port's device
+form where it has one (``encode_rgb``, ``encode_gray``, ``encode_cmyk``,
+``encode_batch_rgb``, ``decode_batch_rgb``, ``decode_stream_rgb``) and
+the host copy's otherwise, and the port's own device entry points. The
+JAX package's ``enable_compile_cache`` (XLA's persistent compile cache)
+has no counterpart: the kernels are built once per source hash into
+``_build/``, under a file lock, and reused from there.
 """
 
-from .host.models.decoder import DecodeResult, JpegDecoder, decode
-from .host.models.encoder import JpegEncodeError, JpegEncoder
+from .host.models.decoder import DecodeResult, ImageInfo, JpegDecoder, decode, decode_rgb8
+from .host.models.encoder import (
+    JpegEncodeError,
+    JpegEncoder,
+    encode_rgb_stream,
+    encode_rgb_stripes,
+)
+from .host.models.hierarchical import encode_hierarchical
 from .host.models.huffman_baseline import JpegDecodeError
+from .host.models.arithmetic_lossless import encode_lossless_arithmetic
+from .host.models.lossless import encode_lossless
+from .host.models.optimizer import JpegOptimizer, optimize
+from .host.models.region import decode_region
+from .host.models.transcode import autorotate, crop, transcode, transform
 from .models.decoder import device_inputs, to_rgb8_device
-from .models.encoder import encode, encode_gray, encode_rgb
+from .models.encoder import encode, encode_cmyk, encode_gray, encode_rgb
+from .models.streaming import decode_rgb_streaming, decode_rgb_stripes
 from .ops.pipeline import (
     transform_delta,
     transform_dense,
     transform_mcu,
     transform_mcu2,
     transform_to_rgb8,
+    transform_to_u16,
 )
-from .parallel.batch import decode_batch_rgb, decode_stream_rgb
+from .parallel.batch import decode_batch_rgb, decode_stream_rgb, encode_batch_rgb
 
 __all__ = [
-    "DecodeResult", "JpegDecodeError", "JpegDecoder", "JpegEncodeError", "JpegEncoder",
-    "decode", "decode_batch_rgb", "decode_stream_rgb", "device_inputs", "encode",
-    "encode_gray", "encode_rgb", "to_rgb8_device", "transform_delta", "transform_dense",
-    "transform_mcu", "transform_mcu2", "transform_to_rgb8",
+    # The JAX package's names (all but enable_compile_cache).
+    "JpegDecoder", "DecodeResult", "ImageInfo", "decode", "decode_rgb8", "decode_batch_rgb",
+    "decode_region", "decode_stream_rgb", "JpegEncoder", "encode_batch_rgb", "encode_rgb",
+    "encode_rgb_stream", "encode_rgb_stripes", "encode_gray", "encode_cmyk", "encode_lossless",
+    "encode_lossless_arithmetic", "encode_hierarchical", "JpegOptimizer", "optimize",
+    "autorotate", "crop", "transcode", "transform",
+    # The port's own.
+    "JpegDecodeError", "JpegEncodeError", "decode_rgb_stripes", "decode_rgb_streaming",
+    "device_inputs", "encode", "to_rgb8_device", "transform_delta", "transform_dense",
+    "transform_mcu", "transform_mcu2", "transform_to_rgb8", "transform_to_u16",
 ]

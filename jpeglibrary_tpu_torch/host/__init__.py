@@ -7,8 +7,8 @@ Each module sits at the relative path it has under ``jpeglibrary_tpu/``
 and is a copy of it with its imports pointed here. The copies leave out
 the JAX device branches, which the port replaces with its own
 (``DecodeResult.to_rgb8_device``, the ``xp=jnp`` branch and the mesh of
-``JpegEncoder.encode``, the JAX programs of ``ops`` and ``parallel``),
-and the encoders no entry point of the port reaches
-(``encode_hierarchical``). The native scanner builds from this
-package's own ``native/scanner.cpp``.
+``JpegEncoder.encode``, the JAX programs of ``ops`` and ``parallel``, the
+stripe transforms of ``models/streaming.py``). The native scanner builds
+from this package's own ``native/scanner.cpp``. ``utils/fixtures.py``
+imports PIL only when called.
 """

@@ -4,7 +4,7 @@ Port of ``jpeglibrary_tpu.models.decoder.DecodeResult.to_rgb8_device``
 with every branch but the packer-less one (the port always builds the
 native packer): the v2 split-stream wire, the v1 MCU wire, the v1
 plane-order wire of ``prepack``, and the dense planes, at full size and
-at 1/2, 1/4 and 1/8. The host decode is the port's copy of the JAX
+at 1/2, 1/4 and 1/8, with duplicate or fancy upsampling. The host decode is the port's copy of the JAX
 package's (``host/models/decoder.py``):
 ``JpegDecoder.decode(sparse_direct=True)`` returns a ``DecodeResult``
 whose numpy state (payloads, coefficient planes, quant tables) this
@@ -72,12 +72,11 @@ def to_rgb8_device(result: DecodeResult, *, device, sparse: bool = True,
     payload, else its v1 MCU payload, else (``sparse``) the v1
     plane-order payload of its coefficient planes, else the dense planes.
     ``scale`` in {1, 1/2, 1/4, 1/8} runs the reduced IDCT on the sparse
-    wires. Raises for lossless results, other colour transforms, other
-    scales, a scaled dense decode, and ``upsample="fancy"``, which is not
-    ported yet."""
+    wires. ``upsample="fancy"`` runs libjpeg's triangular chroma filter
+    (full size only). Raises for lossless results, other colour
+    transforms, other scales, fancy upsampling at a scale below 1 and a
+    scaled dense decode."""
     scale_n = scale_n_of(scale)
-    if upsample != "duplicate":
-        raise ValueError("only duplicate upsampling is ported to the PyTorch device path")
     if result.samples is not None:
         raise ValueError("lossless results have no device transform stage")
     if result.color_transform not in ("ycbcr", "gray"):
@@ -88,14 +87,14 @@ def to_rgb8_device(result: DecodeResult, *, device, sparse: bool = True,
         )
     geometry = result.geometry
     quants = quant_tables(result)
+    kw = {"scale_n": scale_n, "upsample": upsample}
     if result.packed_mcu2 is not None:
-        return transform_mcu2(result.packed_mcu2, quants, geometry, device, scale_n=scale_n)
+        return transform_mcu2(result.packed_mcu2, quants, geometry, device, **kw)
     if result.packed_mcu is not None:
-        return transform_mcu(result.packed_mcu, quants, geometry, device, scale_n=scale_n)
+        return transform_mcu(result.packed_mcu, quants, geometry, device, **kw)
     if sparse:
-        return transform_delta(delta_payload(result), quants, geometry, device,
-                               scale_n=scale_n)
+        return transform_delta(delta_payload(result), quants, geometry, device, **kw)
     if scale_n != 8:
         raise ValueError("scaled device decode rides the sparse paths")
     planes = [result.coefficients[c.component_index] for c in geometry.components]
-    return transform_dense(planes, quants, geometry, device)
+    return transform_dense(planes, quants, geometry, device, upsample=upsample)

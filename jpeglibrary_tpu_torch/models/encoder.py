@@ -2,15 +2,18 @@
 with the sample transform on a PyTorch device.
 
 Port of the device branch of ``jpeglibrary_tpu.models.encoder.JpegEncoder.encode``
-(``xp=jnp``) and of its entry points ``encode_rgb`` and ``encode_gray``.
-The host layers are the port's copy of the JAX package's (``host/``):
-RGB input is converted on the host with the native ``rgb_to_ycbcr``, as
-that branch converts it;
+(``xp=jnp``) and of its entry points ``encode_rgb``, ``encode_gray`` and
+``encode_cmyk``. The host layers are the port's copy of the JAX package's
+(``host/``): RGB input is converted on the host with the native
+``rgb_to_ycbcr``, and CMYK/YCCK ink with the staged conversion, as that
+branch converts them;
 ``ops.encode_stage.forward`` computes the coefficient planes on the
 device; and a shallow copy of the encoder, given those planes through
 ``set_coefficient_planes``, orders them into MCUs and runs the Huffman
 or arithmetic emission, which gives the bytes the JAX branch gives for
-the same planes.
+the same planes. The inputs that the JAX package encodes on the host
+whatever ``xp`` is (coefficient planes, pull readers, streams) go to the
+port's host encoder, as they go to the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,18 +26,38 @@ import torch
 
 from ..host.models.encoder import JpegEncodeError, JpegEncoder, _configure_rgb_encoder
 from ..host.models.geometry import ceil_div
+from ..host.ops import color as color_ops
 from ..host.syntax import huffman_standard
-from ..host.syntax.quantization import scale_by_quality, standard_luminance_table
-from ..ops import _build, encode_stage, kernels
+from ..host.syntax.quantization import (
+    scale_by_quality,
+    standard_chrominance_table,
+    standard_luminance_table,
+)
+from ..ops import _build, encode_stage
 
-#: Inputs the device branch does not take through ``jitted_forward``.
-_UNPORTED_INPUTS = {
-    "_input_reader": "streaming readers",
-    "_input_rgb_reader": "streaming RGB readers",
-    "_input_stream": "streams of unknown height",
-    "_input_ink": "CMYK/YCCK ink",
-    "_coefficient_planes": "coefficient planes",
-}
+#: Inputs that ``JpegEncoder.encode`` encodes on the host whatever ``xp``
+#: is: streams and pull readers run its streaming encoders ahead of any
+#: transform, and coefficient planes are already quantized.
+HOST_INPUTS = ("_input_stream", "_input_rgb_reader", "_input_reader", "_coefficient_planes")
+
+
+def takes_host_path(encoder: JpegEncoder) -> bool:
+    """True when ``encoder``'s input is one of :data:`HOST_INPUTS`."""
+    return any(getattr(encoder, field) is not None for field in HOST_INPUTS)
+
+
+def ink_planes(ink: np.ndarray, ycck: bool) -> List[np.ndarray]:
+    """The 4 uint8 sample planes of CMYK ink, converted as the JAX
+    package's staged ink path converts them: plain CMYK stores ``255 -
+    ink``; YCCK runs the CMY triple through the fixed-point RGB -> YCbCr
+    transform and stores K inverted."""
+    if not ycck:
+        return [255 - ink[..., i] for i in range(4)]
+    y, cb, cr = color_ops.rgb_to_ycbcr(
+        ink[..., 0].astype(np.int32), ink[..., 1].astype(np.int32),
+        ink[..., 2].astype(np.int32),
+    )
+    return [y.astype(np.uint8), cb.astype(np.uint8), cr.astype(np.uint8), 255 - ink[..., 3]]
 
 
 def device_quants(encoder: JpegEncoder, device) -> torch.Tensor:
@@ -54,13 +77,17 @@ def device_quants(encoder: JpegEncoder, device) -> torch.Tensor:
 
 def sample_planes(encoder: JpegEncoder) -> List[np.ndarray]:
     """The encoder's sample planes as the device stage takes them (uint8
-    at 8 bits, int32 at 12): its input planes, or its RGB input converted
-    on the host. Raises for what the device branch does not take."""
-    for field, what in _UNPORTED_INPUTS.items():
-        if getattr(encoder, field) is not None:
-            raise JpegEncodeError(f"the device encode does not take {what}")
+    at 8 bits, int32 at 12): its input planes, or its RGB or ink input
+    converted on the host. Raises for what the device branch does not
+    take: the inputs of :data:`HOST_INPUTS`, differential frames (which
+    take coefficient planes), and a JAX mesh (multi-device is not
+    ported)."""
+    if takes_host_path(encoder):
+        raise JpegEncodeError("the device stage takes sample planes, RGB or ink")
     if encoder.differential:
-        raise JpegEncodeError("the device encode does not take differential frames")
+        raise JpegEncodeError(
+            "differential frames take pre-quantized coefficient planes "
+            "(set_coefficient_planes), not samples")
     if encoder.mesh is not None:
         raise JpegEncodeError("the device encode does not take a JAX mesh")
     if encoder.sample_precision not in (8, 12):
@@ -70,6 +97,8 @@ def sample_planes(encoder: JpegEncoder) -> List[np.ndarray]:
     if not encoder._components:
         raise JpegEncodeError("No component is specified.")
     planes = encoder._input_planes
+    if planes is None and encoder._input_ink is not None:
+        planes = ink_planes(*encoder._input_ink)
     if planes is None:
         if encoder._input_rgb is None:
             raise JpegEncodeError("Input is not specified.")
@@ -91,12 +120,6 @@ def coefficient_planes(encoder: JpegEncoder, *, device) -> List[np.ndarray]:
     max_h = max(c.h for c in comps)
     max_v = max(c.v for c in comps)
     comp_params = tuple((c.h, c.v, max_h // c.h, max_v // c.v) for c in comps)
-    hss, vss = kernels.BOX_FACTORS
-    if any(hs not in hss or vs not in vss for _, _, hs, vs in comp_params):
-        raise JpegEncodeError(
-            f"the device encode takes box factors {hss} x {vss}, not "
-            f"{[(hs, vs) for _, _, hs, vs in comp_params]}"
-        )
     outs = encode_stage.forward(
         planes, device_quants(encoder, device), comp_params,
         ceil_div(encoder._width, 8 * max_h), ceil_div(encoder._height, 8 * max_v),
@@ -117,7 +140,16 @@ def emit(encoder: JpegEncoder, planes) -> bytes:
 
 def encode(encoder: JpegEncoder, *, device) -> bytes:
     """JPEG bytes of a configured encoder, the sample transform on
-    ``device``: the port of ``JpegEncoder.encode(xp=jnp)``."""
+    ``device``: the port of ``JpegEncoder.encode(xp=jnp)``.
+
+    Sample planes, RGB and CMYK/YCCK ink take the device stage (one K2
+    launch per component). Coefficient planes, pull readers and streams
+    take the port's host encoder, which launches no kernel: the JAX
+    package encodes them on the host whatever ``xp`` is, and so gives the
+    same bytes. The encoder itself is left as it was (a shallow copy
+    runs). A JAX mesh raises on either path."""
+    if takes_host_path(encoder):
+        return copy.copy(encoder).encode()
     return emit(encoder, coefficient_planes(encoder, device=device))
 
 
@@ -177,3 +209,60 @@ def encode_gray(plane: np.ndarray, quality: int = 75, *, device,
     encoder.add_component(1, 0, 0, 0, 1, 1)
     encoder.set_input([plane])
     return encode(encoder, device=device)
+
+
+def cmyk_encoder(ink: np.ndarray, quality: int = 75, *, ycck: bool = False,
+                 subsampling: str = "420", optimize_coding: bool = False,
+                 restart_interval: int = 0) -> JpegEncoder:
+    """The encoder that :func:`encode_cmyk` runs, configured as
+    ``jpeglibrary_tpu.encode_cmyk`` configures its own (Adobe APP14
+    transform 0 or 2; plain CMYK at 1x1; YCCK with Cb/Cr on quant and
+    Huffman tables 1 and Y and K at the luma factors of ``subsampling``),
+    with ``ink`` as its input."""
+    ink = np.asarray(ink, dtype=np.uint8)
+    if ink.ndim != 3 or ink.shape[-1] != 4:
+        raise JpegEncodeError("encode_cmyk expects [H, W, 4] ink values.")
+    encoder = JpegEncoder()
+    encoder.most_optimal_coding = False
+    encoder.restart_interval = restart_interval
+    encoder.add_marker_segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 2 if ycck else 0]))
+    tables = [(0, standard_luminance_table, huffman_standard.dc_luminance,
+               huffman_standard.ac_luminance)]
+    if ycck:
+        tables.append((1, standard_chrominance_table, huffman_standard.dc_chrominance,
+                       huffman_standard.ac_chrominance))
+    for tid, quant, dc, ac in tables:
+        encoder.set_quantization_table(scale_by_quality(quant(tid), quality))
+        if optimize_coding:
+            encoder.set_huffman_table(True, tid)
+            encoder.set_huffman_table(False, tid)
+        else:
+            encoder.set_huffman_table(True, tid, dc())
+            encoder.set_huffman_table(False, tid, ac())
+    if not ycck:
+        for i in range(4):
+            encoder.add_component(i + 1, 0, 0, 0, 1, 1)
+    else:
+        luma_hv = {"420": (2, 2), "444": (1, 1), "422": (2, 1), "440": (1, 2),
+                   "411": (4, 1)}.get(subsampling)
+        if luma_hv is None:
+            raise ValueError(f"unsupported subsampling {subsampling!r}")
+        encoder.add_component(1, 0, 0, 0, *luma_hv)
+        encoder.add_component(2, 1, 1, 1, 1, 1)
+        encoder.add_component(3, 1, 1, 1, 1, 1)
+        encoder.add_component(4, 0, 0, 0, *luma_hv)  # K at luma resolution
+    encoder.set_input_ink(ink, ycck=ycck)
+    return encoder
+
+
+def encode_cmyk(ink: np.ndarray, quality: int = 75, *, device, ycck: bool = False,
+                subsampling: str = "420", optimize_coding: bool = False,
+                restart_interval: int = 0) -> bytes:
+    """CMYK ink [H, W, 4] uint8 -> Adobe-tagged 4-component JPEG, as
+    ``jpeglibrary_tpu.encode_cmyk`` with the transform on ``device``:
+    the ink converted on the host (:func:`ink_planes`), then 4 K2
+    launches."""
+    return encode(cmyk_encoder(
+        ink, quality, ycck=ycck, subsampling=subsampling, optimize_coding=optimize_coding,
+        restart_interval=restart_interval,
+    ), device=device)

@@ -1,9 +1,11 @@
 """Decode transform stage in PyTorch: zig-zag coefficient blocks ->
 sample planes -> 8-bit output.
 
-Port of ``jpeglibrary_tpu/ops/decode_stage.py`` (the parts the serving
-decode runs, the scaled decode's reduced IDCT included). The integer ops
-are bit-exact against the numpy originals; :func:`dequantize_idct_shift`
+Port of ``jpeglibrary_tpu/ops/decode_stage.py`` (the parts the device
+transform runs: the scaled decode's reduced IDCT, libjpeg's fancy
+upsampling and the 16-bit extending writer included). The integer ops
+are bit-exact against the numpy originals, computed in int32 whatever
+the output type; :func:`dequantize_idct_shift`
 is the plain PyTorch version of the K1 kernel (``ops/kernels.py``) and,
 like the Pallas kernel and the XLA matvecs it mirrors, is within 1
 sample LSB of the butterfly IDCT and of the JAX scaled transform.
@@ -62,6 +64,63 @@ def upsample_duplicate(plane: torch.Tensor, hs: int, vs: int) -> torch.Tensor:
     if hs != 1:
         plane = plane.repeat_interleave(hs, dim=-1)
     return plane
+
+
+def _fancy_double_w(p: torch.Tensor) -> torch.Tensor:
+    """Double the last axis with libjpeg's h2v1 triangular weights; the
+    replicated edges give jdsample.c's first and last columns."""
+    left = torch.cat([p[..., :1], p[..., :-1]], dim=-1)
+    right = torch.cat([p[..., 1:], p[..., -1:]], dim=-1)
+    even = (3 * p + left + 1) >> 2
+    odd = (3 * p + right + 2) >> 2
+    return torch.stack([even, odd], dim=-1).reshape(*p.shape[:-1], -1)
+
+
+def upsample_fancy(plane: torch.Tensor, hs: int, vs: int) -> torch.Tensor:
+    """libjpeg's triangular ("fancy") upsampling of ``[..., h, w]`` planes
+    of clamped samples, in int32: jdsample.c's h2v1_fancy_upsample at
+    (2, 1) and h2v2_fancy_upsample at (2, 2), with replicated edges and
+    the +1/+2 and +8/+7 biases; every other factor duplicates, as libjpeg
+    selects. Bit-exact against ``decode_stage.upsample_fancy``."""
+    p = plane.to(torch.int32)
+    if hs == 2 and vs == 1:
+        return _fancy_double_w(p)
+    if hs == 2 and vs == 2:
+        up = torch.cat([p[..., :1, :], p[..., :-1, :]], dim=-2)
+        down = torch.cat([p[..., 1:, :], p[..., -1:, :]], dim=-2)
+        # Output row 2v blends input rows (v, v-1) 3:1 and row 2v+1 rows
+        # (v, v+1): jdsample.c's thiscolsum chain.
+        t = torch.stack([3 * p + up, 3 * p + down], dim=-2)
+        t = t.reshape(*p.shape[:-2], 2 * p.shape[-2], p.shape[-1])
+        left = torch.cat([t[..., :1], t[..., :-1]], dim=-1)
+        right = torch.cat([t[..., 1:], t[..., -1:]], dim=-1)
+        even = (3 * t + left + 8) >> 4
+        odd = (3 * t + right + 7) >> 4
+        return torch.stack([even, odd], dim=-1).reshape(*t.shape[:-1], -1)
+    return upsample_duplicate(p, hs, vs)
+
+
+def extend_to_uint16(plane: torch.Tensor, precision: int) -> torch.Tensor:
+    """The 16-bit extending writer: each int32 sample taken as a ushort
+    (``& 0xFFFF``, so a negative one wraps high and clamps to the top),
+    clamped to ``2^precision - 1``, bit-expanded to 16 bits, and cast
+    once to ``torch.uint16``. Bit-exact against
+    ``decode_stage.extend_to_uint16``."""
+    max_value = (1 << precision) - 1
+    bits = (plane.to(torch.int32) & 0xFFFF).clamp(max=max_value)
+    if precision >= 8:
+        r = 16 - precision
+        bits = (bits << r) | (bits & ((1 << r) - 1))
+    else:
+        current = precision
+        while current < 16:
+            bits = (bits << precision) | bits
+            current += precision
+        if current > 16:
+            bits = bits >> precision
+            current -= precision
+            bits = (bits << (16 - current)) | (bits & ((1 << (16 - current)) - 1))
+    return bits.to(torch.uint16)
 
 
 def clamp_to_uint8(plane: torch.Tensor) -> torch.Tensor:

@@ -169,7 +169,7 @@ def fdct_split_operand(device: torch.device) -> torch.Tensor:
     return fdct_split().transpose(1, 2).contiguous().to(device)
 
 
-BOX_FACTORS = ((1, 2, 4), (1, 2))  # the hs and vs K2 takes
+BOX_FACTORS = ((1, 2, 3, 4), (1, 2, 3, 4))  # the hs and vs K2 takes, as T.81 allows
 
 
 def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int, *,
@@ -182,14 +182,19 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
     shift, FDCT, zig-zag and quantize.
 
     ``blocks`` is (hb, wb), the component's block grid (by default the
-    least that covers the plane). int32 samples must lie within 2^16 of
+    least that covers the plane). hs and vs are each 1 to 4, the box
+    factors ``max_h // h`` and ``max_v // v`` that T.81's sampling factors
+    give; ``//`` floors, as the JAX package's int32 division does, for a
+    negative box sum too. int32 samples must lie within 2^16 of
     ``level_shift`` (the 8- and 12-bit precisions do), where the kernel's
     bf16 split is exact.
 
     On a CPU plane it runs the plain version, ``encode_stage.pad_to_grid``
     -> ``subsample_box`` -> ``fdct_quantize``; on a CUDA plane it launches
     ``csrc/fdct_quant.cu``, which fuses the pad and the box into its load,
-    or raises. ``fdct_quantize.launches`` counts the kernel's launches."""
+    or raises. ``fdct_quantize.launches`` counts the kernel's launches,
+    and ``fdct_quantize.launches_by_box`` the same launches by (sample
+    dtype, hs, vs), one instantiation of the kernel each."""
     if plane.dtype not in (torch.int32, torch.uint8):
         raise TypeError(f"samples must be int32 or uint8, got {plane.dtype}")
     if plane.dim() != 2:
@@ -239,7 +244,10 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")
     with _COUNT_LOCK:
         fdct_quantize.launches += 1
+        key = (plane.dtype, hs, vs)
+        fdct_quantize.launches_by_box[key] = fdct_quantize.launches_by_box.get(key, 0) + 1
     return out
 
 
 fdct_quantize.launches = 0
+fdct_quantize.launches_by_box = {}

@@ -4,9 +4,10 @@ Port of ``jpeglibrary_tpu/ops/pipeline.py``: the densify of each wire
 (``jitted_transform_mcu2_inner`` for the v2 split-stream wire,
 ``jitted_transform_mcu_inner`` for the v1 MCU wire,
 ``jitted_transform_delta`` for the v1 plane-order wire, and the dense
-``jitted_transform``), and the shared tail ``transform_to_rgb8`` with
-``_transform_planes``, at full size and at the scaled decode's 1/2, 1/4
-and 1/8. PyTorch runs it eagerly, one op after another, on the inputs'
+``jitted_transform``), and the shared tails ``transform_to_rgb8`` (with
+duplicate or libjpeg's fancy upsampling) and ``transform_to_u16`` (the
+16-bit extending writer, ``output="u16"``), at full size and, for RGB
+with duplicate upsampling, at the scaled decode's 1/2, 1/4 and 1/8. PyTorch runs it eagerly, one op after another, on the inputs'
 device; K1 (``kernels.dequantize_idct_shift``) does each component's
 dequantize + IDCT.
 
@@ -163,8 +164,24 @@ def densify_delta(packed_i16: torch.Tensor, geometry: FrameGeometry) -> List[tor
     return planes
 
 
+UPSAMPLES = ("duplicate", "fancy")
+OUTPUTS = ("rgb8", "u16")  # of the wire transforms; transform_dense adds "rgb8p"
+
+
+def _component_samples(cz: torch.Tensor, quants: torch.Tensor, i: int,
+                       geometry: FrameGeometry, scale_n: int = 8) -> torch.Tensor:
+    """Component i's K1 launch for the whole batch -> its int32 sample
+    plane ``[B, Hb*n, Wb*n]`` at its own resolution."""
+    samples = kernels.dequantize_idct_shift(
+        cz, quants[:, i].contiguous(), geometry.level_shift,
+        blocks_per_table=cz.shape[1] * cz.shape[2], scale_n=scale_n,
+    )
+    return decode_stage.blocks_to_plane(samples)
+
+
 def transform_to_rgb8(coeffs: Sequence[torch.Tensor], quants: torch.Tensor,
-                      geometry: FrameGeometry, *, scale_n: int = 8) -> torch.Tensor:
+                      geometry: FrameGeometry, *, scale_n: int = 8,
+                      upsample: str = "duplicate") -> torch.Tensor:
     """Per-component zig-zag coefficient planes ``[B, Hb, Wb, 64]`` (int32
     or int16) + ``[B, C, 64]`` int32 zig-zag quant tables -> planar uint8
     RGB ``[B, 3, H', W']`` with ``H' = ceil(H * n / 8)``, n = ``scale_n``.
@@ -174,16 +191,27 @@ def transform_to_rgb8(coeffs: Sequence[torch.Tensor], quants: torch.Tensor,
     duplicate upsampling, which at n < 8 comes after the reduced IDCT as
     in the JAX ``component_plane_scaled``, crop, the precision-aware 8-bit
     writer and fixed-point YCbCr -> RGB. Gray images replicate Y with
-    Cb = Cr = 128."""
+    Cb = Cr = 128.
+
+    ``upsample="fancy"`` (full size only, as in JAX) crops each
+    component to its own ``ceil(H/vs) x ceil(W/hs)`` grid, normalises it
+    to 8 bits and upsamples it with libjpeg's triangular filter
+    (``decode_stage.upsample_fancy``) before the crop to H x W."""
+    if upsample not in UPSAMPLES:
+        raise ValueError(f"upsample must be one of {UPSAMPLES}, got {upsample!r}")
+    if upsample == "fancy" and scale_n != 8:
+        raise ValueError("fancy upsampling is full-resolution only")
     out_h = -(-geometry.height * scale_n // 8)
     out_w = -(-geometry.width * scale_n // 8)
     u8 = []
     for i, (cg, cz) in enumerate(zip(geometry.components, coeffs)):
-        samples = kernels.dequantize_idct_shift(
-            cz, quants[:, i].contiguous(), geometry.level_shift,
-            blocks_per_table=cz.shape[1] * cz.shape[2], scale_n=scale_n,
-        )
-        plane = decode_stage.blocks_to_plane(samples)
+        plane = _component_samples(cz, quants, i, geometry, scale_n)
+        if upsample == "fancy":
+            hc, wc = -(-geometry.height // cg.vs), -(-geometry.width // cg.hs)
+            p8 = decode_stage.normalize_to_uint8(plane[:, :hc, :wc], geometry.precision)
+            plane = decode_stage.upsample_fancy(p8, cg.hs, cg.vs)[:, :out_h, :out_w]
+            u8.append(plane.to(torch.uint8))
+            continue
         plane = decode_stage.upsample_duplicate(plane, cg.hs, cg.vs)
         plane = plane[:, :out_h, :out_w]
         u8.append(decode_stage.normalize_to_uint8(plane, geometry.precision))
@@ -197,8 +225,37 @@ def transform_to_rgb8(coeffs: Sequence[torch.Tensor], quants: torch.Tensor,
     return torch.stack([r, g, b], dim=1)
 
 
+def transform_to_u16(coeffs: Sequence[torch.Tensor], quants: torch.Tensor,
+                     geometry: FrameGeometry) -> torch.Tensor:
+    """As :func:`transform_to_rgb8`, to the 16-bit extending writer's
+    output (the golden-fixture format): for each component one K1 launch,
+    duplicate upsampling, the crop to H x W and ``extend_to_uint16``;
+    ``[B, H, W, C]`` uint16 for any C (CMYK too), no colour conversion."""
+    ext = []
+    for i, (cg, cz) in enumerate(zip(geometry.components, coeffs)):
+        plane = _component_samples(cz, quants, i, geometry)
+        plane = decode_stage.upsample_duplicate(plane, cg.hs, cg.vs)
+        plane = plane[:, :geometry.height, :geometry.width]
+        ext.append(decode_stage.extend_to_uint16(plane, geometry.precision))
+    return torch.stack(ext, dim=-1)
+
+
+def _tail(coeffs, quants, geometry: FrameGeometry, scale_n: int, upsample: str,
+          output: str) -> torch.Tensor:
+    """The shared tail for ``output`` "rgb8" (planar RGB) or "u16"
+    (``[B, H, W, C]``, full size; the JAX package's u16 output has
+    duplicate upsampling whatever ``upsample`` says, and so has this)."""
+    if output == "rgb8":
+        return transform_to_rgb8(coeffs, quants, geometry, scale_n=scale_n, upsample=upsample)
+    if output != "u16":
+        raise ValueError(f"output must be one of {OUTPUTS}, got {output!r}")
+    if scale_n != 8:
+        raise ValueError("the u16 output is full-resolution only")
+    return transform_to_u16(coeffs, quants, geometry)
+
+
 def _wire_transform(densify, wire, quants, geometry: FrameGeometry, device,
-                    scale_n: int) -> torch.Tensor:
+                    scale_n: int, upsample: str, output: str) -> torch.Tensor:
     """Copy a wire and its quant tables to ``device``, densify, and run
     the shared tail. Without a batch axis on ``quants`` ([C, 64]) the wire
     is one image's, and so is the result."""
@@ -207,42 +264,56 @@ def _wire_transform(densify, wire, quants, geometry: FrameGeometry, device,
     single = quants.dim() == 2
     if single:
         wire, quants = wire[None], quants[None]
-    rgb = transform_to_rgb8(densify(wire, geometry), quants, geometry, scale_n=scale_n)
-    return rgb[0] if single else rgb
+    out = _tail(densify(wire, geometry), quants, geometry, scale_n, upsample, output)
+    return out[0] if single else out
 
 
 def transform_mcu2(payload_u8, quants, geometry: FrameGeometry, device, *,
-                   scale_n: int = 8) -> torch.Tensor:
+                   scale_n: int = 8, upsample: str = "duplicate",
+                   output: str = "rgb8") -> torch.Tensor:
     """v2 payload ``[K]`` uint8 + ``[C, 64]`` int32 zig-zag quant tables ->
     planar uint8 RGB ``[3, H', W']`` on ``device`` (inputs that are not
     there yet are copied there); stacked ``[B, K]`` + ``[B, C, 64]`` ->
-    ``[B, 3, H', W']``."""
-    return _wire_transform(densify_mcu2, payload_u8, quants, geometry, device, scale_n)
+    ``[B, 3, H', W']``. ``output="u16"`` gives ``[H, W, C]`` uint16
+    instead (:func:`transform_to_u16`), the JAX ``output="u16"``."""
+    return _wire_transform(densify_mcu2, payload_u8, quants, geometry, device, scale_n,
+                           upsample, output)
 
 
 def transform_mcu(packed_i16, quants, geometry: FrameGeometry, device, *,
-                  scale_n: int = 8) -> torch.Tensor:
+                  scale_n: int = 8, upsample: str = "duplicate",
+                  output: str = "rgb8") -> torch.Tensor:
     """As :func:`transform_mcu2` for the v1 MCU wire, ``[2n]`` or
     ``[B, 2n]`` int16."""
-    return _wire_transform(densify_mcu, packed_i16, quants, geometry, device, scale_n)
+    return _wire_transform(densify_mcu, packed_i16, quants, geometry, device, scale_n,
+                           upsample, output)
 
 
 def transform_delta(packed_i16, quants, geometry: FrameGeometry, device, *,
-                    scale_n: int = 8) -> torch.Tensor:
+                    scale_n: int = 8, upsample: str = "duplicate",
+                    output: str = "rgb8") -> torch.Tensor:
     """As :func:`transform_mcu2` for the v1 plane-order wire, ``[2n]`` or
     ``[B, 2n]`` int16."""
-    return _wire_transform(densify_delta, packed_i16, quants, geometry, device, scale_n)
+    return _wire_transform(densify_delta, packed_i16, quants, geometry, device, scale_n,
+                           upsample, output)
 
 
 def transform_dense(coeffs: Sequence, quants, geometry: FrameGeometry, device, *,
-                    scale_n: int = 8) -> torch.Tensor:
+                    scale_n: int = 8, upsample: str = "duplicate",
+                    output: str = "rgb8p") -> torch.Tensor:
     """As :func:`transform_mcu2` for dense coefficient planes, one per
     component, ``[Hb, Wb, 64]`` or stacked ``[B, Hb, Wb, 64]`` (int16 or
-    int32): the port of ``jitted_transform(geometry, "rgb8p")``."""
+    int32): the port of ``jitted_transform(geometry, output, upsample)``,
+    whose ``output`` is "rgb8p" (planar), "rgb8" (``[H, W, 3]``) or
+    "u16" (``[H, W, C]``)."""
+    if output not in ("rgb8p", *OUTPUTS):
+        raise ValueError(f"output must be one of {('rgb8p', *OUTPUTS)}, got {output!r}")
     quants = torch.as_tensor(quants, dtype=torch.int32, device=device)
     planes = [torch.as_tensor(p, device=device) for p in coeffs]
     single = quants.dim() == 2
     if single:
         planes, quants = [p[None] for p in planes], quants[None]
-    rgb = transform_to_rgb8(planes, quants, geometry, scale_n=scale_n)
-    return rgb[0] if single else rgb
+    out = _tail(planes, quants, geometry, scale_n, upsample, "u16" if output == "u16" else "rgb8")
+    if output == "rgb8":
+        out = out.permute(0, 2, 3, 1).contiguous()
+    return out[0] if single else out

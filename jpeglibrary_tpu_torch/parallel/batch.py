@@ -8,7 +8,8 @@ input order. The host stages (the scan, the grouping, the stacking of
 payloads and quant tables) are the port's copy of the JAX package's
 (``host/parallel/batch.py``); the stacked transforms are
 ``ops.pipeline``'s, which run each op once per group (one K1 launch per
-component).
+component). ``encode_batch_rgb`` maps the port's ``encode_rgb`` over a
+batch on the shared thread pool.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..host.models.decoder import DecodeResult, JpegDecoder
+from ..host.utils.pool import shared_pool
 from ..host.parallel.batch import (
     _device_color_ok,
     _group_key,
@@ -29,6 +31,7 @@ from ..host.parallel.batch import (
     scan_images,
 )
 from ..models.decoder import delta_payload, scale_n_of, to_rgb8_device
+from ..models.encoder import encode_rgb
 from ..ops import _build
 from ..ops.pipeline import transform_delta, transform_mcu, transform_mcu2
 
@@ -188,3 +191,22 @@ def decode_stream_rgb(datas, *, device, depth: int = 4, scan_workers: int = 2,
         flush()
         while inflight:
             yield from inflight.popleft().result()
+
+
+def encode_batch_rgb(rgbs: Sequence[np.ndarray], quality: int = 75, *, device,
+                     max_workers: Optional[int] = None, **encode_kwargs) -> List[bytes]:
+    """Encode a batch of RGB images, in input order: the port of
+    ``jpeglibrary_tpu.encode_batch_rgb``. Each image is one
+    ``encode_rgb(rgb, quality, device=device, **encode_kwargs)`` (3 K2
+    launches), the images spread over the shared thread pool (or a pool
+    of ``max_workers``); an image's failure raises from its position."""
+    def one(rgb: np.ndarray) -> bytes:
+        return encode_rgb(rgb, quality, device=device, **encode_kwargs)
+
+    items = list(rgbs)
+    if len(items) <= 1:
+        return [one(items[0])] if items else []
+    if max_workers is not None:
+        with ThreadPoolExecutor(max_workers=max_workers) as pool:
+            return list(pool.map(one, items))
+    return list(shared_pool().map(one, items))

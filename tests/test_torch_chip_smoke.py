@@ -129,6 +129,8 @@ def test_exits_nonzero_without_cuda():
     ("k2", (65536, 4), 7.52, "bytes"),             # 12-bit int32 samples
     ("k2", (65536, 1), 3.76, "bytes"),             # the Y plane, uint8
     ("k2", (16384, 1, 2048 * 2048), 1.88, "bytes"),  # a 2048x2048 chroma plane at 2x2
+    ("k2", (256 * 86, 1, 2048 * 2048), 2.10, "bytes"),  # at 3x1
+    ("k2", (64 * 64, 4, 2048 * 2048), 5.17, "bytes"),   # int32 at 4x4
 ])
 def test_kernel_bounds(smoke, kernel, args, want_us, by):
     ms, bound_by = (smoke.k1_bound if kernel == "k1" else smoke.k2_bound)(*args)
@@ -161,3 +163,46 @@ def test_k2_probe_exits_nonzero_without_cuda():
     r = subprocess.run([sys.executable, str(ROOT / "tools" / "k2_probe.py")], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "parts:" not in r.stdout
+
+
+@pytest.mark.parametrize("hs,vs", [(3, 1), (1, 3), (3, 3), (4, 3), (4, 4)])
+@pytest.mark.parametrize("precision", [8, 12])
+def test_box_encoder_matches_jax_device_encode(smoke, hs, vs, precision):
+    """chip_smoke.py's box phase encodes with box_encoder: on the CPU it
+    gives the JAX device encode's bytes, and its second component takes
+    the (hs, vs) box."""
+    import jax.numpy as jnp
+
+    from jpeglibrary_tpu.models.encoder import JpegEncoder as RefEncoder
+    from jpeglibrary_tpu.syntax.quantization import scale_by_quality, standard_luminance_table
+
+    rgb = smoke.synth_image(hs * 10 + vs, 96)
+    planes = [rgb[..., 0], rgb[..., 1]]
+    if precision == 12:
+        planes = [p.astype(np.int32) * 16 for p in planes]
+    ours = jtt.encode(smoke.box_encoder(planes, hs, vs, precision), device="cpu")
+    ref = RefEncoder()
+    ref.sample_precision = precision
+    ref.set_quantization_table(scale_by_quality(standard_luminance_table(0), 75))
+    ref.set_huffman_table(True, 0)
+    ref.set_huffman_table(False, 0)
+    ref.add_component(1, 0, 0, 0, hs, vs)
+    ref.add_component(2, 0, 0, 0, 1, 1)
+    ref.set_input(planes)
+    assert ours == ref.encode(xp=jnp)
+    res = jt.decode(ours)
+    comps = res.geometry.components
+    assert [(c.hs, c.vs) for c in comps] == [(1, 1), (hs, vs)]
+
+
+def test_u16_check_counts_a_wrapped_sample_as_one(smoke):
+    """check_u16_close compares samples: 4095 against 0 at 12 bits is a
+    sample 1 below 0 that the writer wrapped, one LSB; 4094 against 0 is
+    not."""
+    want = np.zeros((100, 100, 1), np.uint16)
+    got = want.copy()
+    got[0, 0, 0] = 4095 << 4 | 0xF
+    smoke.check_u16_close(got, want, 12, "wrap")
+    got[0, 0, 0] = 4094 << 4
+    with pytest.raises(SystemExit):
+        smoke.check_u16_close(got, want, 12, "no wrap")

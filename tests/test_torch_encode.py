@@ -24,6 +24,7 @@ import jpeglibrary_tpu_torch as jtt
 from jpeglibrary_tpu.models import encoder as ref_encoder
 from jpeglibrary_tpu.ops import encode_stage as ref_stage
 from jpeglibrary_tpu.ops import pallas_kernels
+from jpeglibrary_tpu_torch.host.models import encoder as host_encoder
 from jpeglibrary_tpu_torch.models import encoder as port_encoder
 from jpeglibrary_tpu_torch.ops import encode_stage, kernels
 
@@ -117,8 +118,13 @@ def test_fdct_matrix_equals_jax_package():
 
 # --- pad and subsample ----------------------------------------------------
 
+# Every box T.81's sampling factors give: hs and vs are each 1 to 4.
+ALL_BOXES = [(1, 1), (2, 2), (2, 1), (1, 2), (4, 1), (3, 1), (1, 3), (3, 2), (3, 3), (4, 3),
+             (4, 4)]
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.int32])
-@pytest.mark.parametrize("hs,vs", [(1, 1), (2, 2), (2, 1), (1, 2), (4, 1)])
+@pytest.mark.parametrize("hs,vs", ALL_BOXES)
 def test_pad_and_subsample_bit_exact(hs, vs, dtype):
     plane = np.random.default_rng(hs * 10 + vs).integers(0, 256, size=(37, 53)).astype(dtype)
     hp, wp = 8 * vs * 5, 8 * hs * 7  # the grid of 37x53 with 8x8 blocks after subsampling
@@ -132,6 +138,29 @@ def test_pad_and_subsample_bit_exact(hs, vs, dtype):
     # A 1x1 box keeps the plane's dtype (K2 takes uint8); the JAX version widens it.
     assert got.dtype == (got_pad.dtype if (hs, vs) == (1, 1) else torch.int32)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("hs,vs", [(3, 1), (3, 3), (1, 3), (3, 2), (2, 3), (4, 3)])
+def test_subsample_floors_negative_sums(hs, vs):
+    """int32 samples below zero give negative box sums: (sum + n//2) // n
+    floors them, as the JAX package's int32 division does (and as K2's
+    division by a constant n that is no power of two must), where a
+    truncating division would round them toward zero."""
+    rng = np.random.default_rng(100 + 10 * hs + vs)
+    plane = rng.integers(-3000, 3000, size=(8 * vs * 4, 8 * hs * 5)).astype(np.int32)
+    want = ref_stage.subsample_box(plane, hs, vs, xp=np)
+    got = encode_stage.subsample_box(torch.from_numpy(plane), hs, vs).numpy()
+    np.testing.assert_array_equal(got, want)
+    sums = plane.reshape(4 * 8, vs, 5 * 8, hs).sum(axis=(1, 3)) + hs * vs // 2
+    truncated = np.trunc(sums / (hs * vs)).astype(np.int32)
+    assert (truncated != want).sum() > 0  # the case floor division exists for
+    # Through the K2 wrapper (its plain version on a CPU plane) and the JAX
+    # package's device forward, 12-bit level shift.
+    quant = _quant(hs * vs)
+    got = kernels.fdct_quantize(torch.from_numpy(plane), torch.from_numpy(quant), 2048,
+                                hs=hs, vs=vs).numpy()
+    (jitted,) = ref_stage.jitted_forward(((1, 1, hs, vs),), 5, 4, 2048.0)((plane,), quant[None])
+    _assert_within_one(got, np.asarray(jitted))
 
 
 # --- forward against jitted_forward ---------------------------------------
@@ -250,18 +279,26 @@ def _ink_encoder():
 
 
 def _unported(kind):
+    """An encoder whose input the device encode refuses, as the JAX
+    package's ``encode(xp=jnp)`` does or, for the mesh, as only the port
+    does (multi-device is not ported)."""
     rgb = _gradient_noise(16, 16, seed=1)
     encoder = port_encoder._configure_rgb_encoder(75, "420")
-    if kind == "rgb_reader":
-        encoder.set_input_rgb_reader(lambda y0, y1: rgb[y0:y1], 16, 16)
-    elif kind == "reader":
-        encoder.set_input_reader(lambda y0, y1: [rgb[y0:y1, :, i] for i in range(3)], 16, 16)
-    elif kind == "stream":
-        encoder.set_input_stream(iter([[rgb[..., i] for i in range(3)]]), 16)
-    elif kind == "ink":
+    if kind == "mesh":
+        encoder.set_input_rgb(rgb)
+        encoder.mesh = object()
+    elif kind == "ink_differential":
         encoder = _ink_encoder()
-    elif kind == "coefficients":
-        encoder.set_coefficient_planes([np.zeros((2, 2, 64), np.int16)] * 3, 16, 16)
+        encoder.differential = True
+    elif kind == "ink_precision16":
+        encoder = _ink_encoder()
+        encoder.sample_precision = 16
+    elif kind == "component_count":
+        encoder.add_component(4, 0, 0, 0, 1, 1)
+        encoder.set_input_rgb(rgb)
+    elif kind == "quant_table_missing":
+        encoder.add_component(4, 3, 0, 0, 1, 1)
+        encoder.set_input([rgb[..., 0]] * 4)
     elif kind == "differential":
         encoder.set_input_rgb(rgb)
         encoder.differential = True
@@ -273,23 +310,97 @@ def _unported(kind):
     return encoder
 
 
-@pytest.mark.parametrize("kind", ["rgb_reader", "reader", "stream", "ink", "coefficients",
+@pytest.mark.parametrize("kind", ["mesh", "ink_differential", "ink_precision16",
+                                  "component_count", "quant_table_missing",
                                   "differential", "precision16", "no_input"])
 def test_encode_raises_for_unported_inputs(kind):
     with pytest.raises(jtt.JpegEncodeError):
         jtt.encode(_unported(kind), device="cpu")
 
 
+def _host_input_encoder(mod, kind):
+    """An encoder of ``mod`` (the JAX package's encoder module or the
+    port's host copy) with an input that ``encode`` takes on the host."""
+    rgb = _gradient_noise(24, 40, seed=6)
+    encoder = mod._configure_rgb_encoder(75, "420")
+    if kind == "rgb_reader":
+        encoder.set_input_rgb_reader(lambda y0, y1: rgb[y0:y1], 40, 24)
+    elif kind == "reader":
+        encoder.set_input_reader(lambda y0, y1: [rgb[y0:y1, :, i] for i in range(3)], 40, 24)
+    elif kind == "stream":
+        encoder.set_input_stream(iter([[rgb[:16, :, i] for i in range(3)],
+                                       [rgb[16:, :, i] for i in range(3)]]), 40)
+    elif kind == "coefficients":
+        res = jt.decode(ref_encoder.encode_rgb(rgb, 80))
+        encoder.set_coefficient_planes(
+            [res.coefficients[c.component_index] for c in res.geometry.components], 40, 24)
+    elif kind == "differential_coefficients":
+        encoder = mod.JpegEncoder()
+        encoder.differential = True
+        encoder.set_quantization_table(port_encoder.scale_by_quality(
+            port_encoder.standard_luminance_table(0), 80))
+        encoder.set_huffman_table(True, 0)
+        encoder.set_huffman_table(False, 0)
+        encoder.add_component(1, 0, 0, 0, 1, 1)
+        encoder.set_coefficient_planes(
+            [np.random.default_rng(7).integers(-20, 20, (3, 5, 64)).astype(np.int16)], 40, 24)
+    return encoder
+
+
+@pytest.mark.parametrize("kind", ["rgb_reader", "reader", "stream", "coefficients",
+                                  "differential_coefficients"])
+def test_encode_host_inputs_match_jax_device_encode(kind, monkeypatch):
+    """Coefficient planes, pull readers and streams: the JAX package's
+    ``encode(xp=jnp)`` encodes them on the host, and so does the port,
+    with the same bytes and no K2 call at all."""
+    calls = []
+    plain = kernels.fdct_quantize
+    monkeypatch.setattr(kernels, "fdct_quantize",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    want = _host_input_encoder(ref_encoder, kind).encode(xp=jnp)
+    encoder = _host_input_encoder(host_encoder, kind)
+    assert port_encoder.takes_host_path(encoder)
+    assert jtt.encode(encoder, device="cpu") == want
+    assert calls == []
+
+
+@pytest.mark.parametrize("ycck,subsampling", [(False, "420"), (True, "420"), (True, "444"),
+                                              (True, "422"), (True, "440"), (True, "411")])
+def test_encode_cmyk_matches_jax_device_encode(ycck, subsampling, monkeypatch):
+    """CMYK ink through the staged conversion and 4 K2 calls, against
+    ``jt.encode_cmyk(xp=jnp)``: planes within one, bytes equal where they
+    are equal (the decoded streams too)."""
+    calls = []
+    plain = kernels.fdct_quantize
+    monkeypatch.setattr(kernels, "fdct_quantize",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    rgb = _gradient_noise(37, 53, seed=11)
+    ink = np.concatenate([rgb, _gradient_noise(37, 53, seed=12)[..., :1]], axis=-1)
+    got = jtt.encode_cmyk(ink, 75, device="cpu", ycck=ycck, subsampling=subsampling)
+    assert len(calls) == 4
+    want = ref_encoder.encode_cmyk(ink, 75, ycck=ycck, subsampling=subsampling, xp=jnp)
+    encoder = port_encoder.cmyk_encoder(ink, 75, ycck=ycck, subsampling=subsampling)
+    _check_against_jax(encoder, got, want)
+    assert got == want
+
+
+def test_encode_cmyk_optimize_restart_matches_jax():
+    ink = np.random.default_rng(13).integers(0, 256, (32, 48, 4)).astype(np.uint8)
+    kw = {"ycck": True, "optimize_coding": True, "restart_interval": 2}
+    assert (jtt.encode_cmyk(ink, 60, device="cpu", **kw)
+            == ref_encoder.encode_cmyk(ink, 60, xp=jnp, **kw))
+
+
 # The encoder's private fields that jpeglibrary_tpu_torch/models/encoder.py reads.
-HOST_FIELDS = ("_components", "_quant_tables", "_input_planes", "_input_rgb",
-               "sample_precision", "_width", "_height")
+HOST_FIELDS = ("_components", "_quant_tables", "_input_planes", "_input_rgb", "_input_ink",
+               "sample_precision", "_width", "_height", "differential", "mesh")
 
 
 def test_encoder_fields_the_port_reads_exist():
     fields = vars(jtt.JpegEncoder())
     missing = [f for f in HOST_FIELDS if f not in fields]
     assert not missing, missing
-    for f in port_encoder._UNPORTED_INPUTS:
+    for f in port_encoder.HOST_INPUTS:
         assert f in fields, f
 
 
@@ -328,7 +439,7 @@ def test_wrapper_rejects_bad_inputs():
 # --- K2's fused pad and box subsample -------------------------------------
 
 SAMPLE_KINDS = [(np.uint8, 128), (np.int32, 128), (np.int32, 2048)]
-BOXES = [(1, 1), (2, 2), (2, 1), (1, 2), (4, 1)]
+BOXES = ALL_BOXES
 
 
 def _kind_samples(shape, dtype, level_shift, seed):
@@ -440,8 +551,8 @@ def _bad_k2_call(kind):
     p = torch.from_numpy(_samples((40, 56), 128, seed=2))
     q = torch.from_numpy(_quant(2))
     calls = {
-        "hs3": lambda: kernels.fdct_quantize(p, q, 128, hs=3),
-        "vs4": lambda: kernels.fdct_quantize(p, q, 128, vs=4),
+        "hs5": lambda: kernels.fdct_quantize(p, q, 128, hs=5),
+        "vs0": lambda: kernels.fdct_quantize(p, q, 128, vs=0),
         "hs0": lambda: kernels.fdct_quantize(p, q, 128, hs=0),
         "rows_short": lambda: kernels.fdct_quantize(p, q, 128, vs=2, blocks=(2, 7)),
         "cols_short": lambda: kernels.fdct_quantize(p, q, 128, hs=2, blocks=(5, 3)),
@@ -452,7 +563,7 @@ def _bad_k2_call(kind):
     return calls[kind]
 
 
-@pytest.mark.parametrize("kind", ["hs3", "vs4", "hs0", "rows_short", "cols_short",
+@pytest.mark.parametrize("kind", ["hs5", "vs0", "hs0", "rows_short", "cols_short",
                                   "negative_blocks", "non_contiguous", "level_shift"])
 def test_wrapper_rejects_bad_box_grid_or_layout(kind):
     with pytest.raises(ValueError):
@@ -472,15 +583,41 @@ def test_wrapper_takes_a_grid_larger_than_the_plane():
     assert (pad[:, 0] == -256).all() and not pad[:, 1:].any()
 
 
-def test_unsupported_box_factors_raise_encode_error():
-    """A component sampled 3x finer than another needs a box the device
-    encode does not take: it raises JpegEncodeError before any work."""
-    plane = _samples((24, 48), 128, seed=4)
-    encoder = jtt.JpegEncoder()
+def _box_encoder(mod, h, v, plane):
+    """A luma sampled (h, v) over 1x1 chroma, the setup of the JAX
+    package's tests/test_encoder.py exotic-sampling round trip."""
+    encoder = mod.JpegEncoder()
     encoder.set_quantization_table(port_encoder.scale_by_quality(
         port_encoder.standard_luminance_table(0), 80))
-    encoder.add_component(1, 0, 0, 0, 3, 1)
+    encoder.set_huffman_table(True, 0)
+    encoder.set_huffman_table(False, 0)
+    encoder.add_component(1, 0, 0, 0, h, v)
     encoder.add_component(2, 0, 0, 0, 1, 1)
     encoder.set_input([plane, plane])
-    with pytest.raises(jtt.JpegEncodeError):
-        port_encoder.coefficient_planes(encoder, device="cpu")
+    return encoder
+
+
+def test_unsupported_box_factors_raise_encode_error():
+    """The boxes the device encode once refused, a component sampled 3x or
+    4x finer than another, now encode on the device: the bytes of the JAX
+    package's ``encode(xp=jnp)`` for luma (3,1), (1,3), (3,2), (3,3) and
+    (4,4) over 1x1 chroma, and no JpegEncodeError."""
+    plane = _samples((24, 48), 128, seed=4)
+    for h, v in [(3, 1), (1, 3), (3, 2), (3, 3), (4, 4)]:
+        want = _box_encoder(ref_encoder, h, v, plane).encode(xp=jnp)
+        encoder = _box_encoder(host_encoder, h, v, plane)
+        got = jtt.encode(encoder, device="cpu")
+        _check_against_jax(encoder, got, want)
+        assert got == want, (h, v)
+
+
+@pytest.mark.parametrize("h,v", [(3, 1), (1, 3), (3, 2), (3, 3), (4, 4), (4, 3)])
+def test_encode_every_box_matches_jax_device_encode(h, v):
+    """A ragged 12-bit plane pair at each luma factor: planes within one of
+    the JAX device encode's, bytes equal where the planes are."""
+    plane = _samples((61, 83), 2048, seed=10 * h + v)
+    encoder = _box_encoder(host_encoder, h, v, plane)
+    encoder.sample_precision = 12
+    ref = _box_encoder(ref_encoder, h, v, plane)
+    ref.sample_precision = 12
+    _check_against_jax(encoder, jtt.encode(encoder, device="cpu"), ref.encode(xp=jnp))

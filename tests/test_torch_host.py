@@ -281,11 +281,14 @@ def test_folded_fdct_matrix_bit_equal():
 # host package notes.
 VERBATIM = [
     "io/bitreader.py", "io/reader.py", "io/writer.py", "models/arithmetic.py",
-    "models/arithmetic_lossless.py", "models/geometry.py", "models/huffman_baseline.py",
-    "models/huffman_builder.py", "models/huffman_progressive.py", "models/lossless.py",
+    "models/arithmetic_lossless.py", "models/geometry.py", "models/hierarchical.py",
+    "models/huffman_baseline.py", "models/huffman_builder.py",
+    "models/huffman_progressive.py", "models/lossless.py", "models/optimizer.py",
+    "models/progressive_encoder.py", "models/region.py", "models/transcode.py",
     "native/scanner.cpp", "native/scanner.py", "ops/color.py", "ops/dct.py", "ops/zigzag.py",
     "syntax/frame.py", "syntax/huffman.py", "syntax/huffman_standard.py",
-    "syntax/markers.py", "syntax/quantization.py", "utils/metrics.py", "utils/pool.py",
+    "syntax/markers.py", "syntax/quantization.py", "utils/fixtures.py", "utils/metrics.py",
+    "utils/pool.py",
 ]
 SUBSTITUTIONS = [
     ("jpeglibrary_tpu.", "jpeglibrary_tpu_torch.host."),
@@ -303,6 +306,29 @@ def test_copy_matches_reference_source(rel):
     for a, b in SUBSTITUTIONS:
         want = want.replace(a, b)
     assert (HOST / rel).read_text() == want
+
+
+def _functions(text):
+    """The top-level functions of a module's source, by name."""
+    import ast
+
+    tree = ast.parse(text)
+    lines = text.splitlines()
+    return {node.name: "\n".join(lines[node.lineno - 1:node.end_lineno])
+            for node in tree.body if isinstance(node, ast.FunctionDef)}
+
+
+def test_streaming_host_half_matches_reference_source():
+    """``host/models/streaming.py`` is the JAX package's module without
+    its three device functions: every other function is text-equal."""
+    want = (REF / "models/streaming.py").read_text()
+    for a, b in SUBSTITUTIONS:
+        want = want.replace(a, b)
+    ours, ref = _functions((HOST / "models/streaming.py").read_text()), _functions(want)
+    device_half = {"decode_rgb_stripes", "_stripes_from_payload2", "decode_rgb_streaming"}
+    assert sorted(ours) == sorted(set(ref) - device_half)
+    for name, text in ours.items():
+        assert text == ref[name], name
 
 
 def test_both_native_scanners_load_side_by_side():

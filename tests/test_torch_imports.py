@@ -54,6 +54,19 @@ def test_cpu_slice_loads_neither_jax_nor_pil(tmp_path):
         "plane = (rgb[..., 0].astype(np.int32) * 16)\n"
         "ours = jtt.encode_gray(plane, 90, device='cpu', precision=12)\n"
         "assert jtt.decode(ours).precision == 12\n"
+        "res = jtt.decode(data, sparse_direct=True)\n"
+        "assert jtt.to_rgb8_device(res, device='cpu', upsample='fancy').shape == (3, 48, 64)\n"
+        "q = jtt.models.decoder.quant_tables(res)\n"
+        "u16 = jtt.transform_mcu2(res.packed_mcu2, q, res.geometry, 'cpu', output='u16')\n"
+        "assert tuple(u16.shape) == (48, 64, 3)\n"
+        "stripes = [s for _, s in jtt.decode_rgb_stripes(data, device='cpu', stripe_mcu_rows=1)]\n"
+        "assert len(stripes) == 3\n"
+        "ink = np.concatenate([rgb, rgb[..., :1]], -1)\n"
+        "assert jtt.decode(jtt.encode_cmyk(ink, 75, device='cpu', ycck=True)).width == 64\n"
+        "assert len(jtt.encode_batch_rgb([rgb, rgb], device='cpu')) == 2\n"
+        "assert jtt.decode_region(data, 8, 8, 16, 16).shape == (16, 16, 3)\n"
+        "assert jtt.decode(jtt.transform(data, 'rot90')).width == 48\n"
+        "assert len(jtt.optimize(data)) < len(data)\n"
         "print(sorted(m for m in ('jax', 'jaxlib', 'PIL', 'jpeglibrary_tpu')\n"
         "             if sys.modules.get(m) is not None))\n"
     )

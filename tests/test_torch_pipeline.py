@@ -87,10 +87,10 @@ def test_guard_lossless():
         jtt.to_rgb8_device(res, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [{"scale": 0.3}, {"upsample": "fancy"}])
+@pytest.mark.parametrize("kwargs", [{"scale": 0.3}, {"upsample": "fancy", "scale": 0.5}])
 def test_guard_unported_options(kwargs):
-    """An invalid scale raises, as in the JAX package; fancy upsampling is
-    not ported yet and raises."""
+    """An invalid scale raises, and so does fancy upsampling below full
+    size, as in the JAX package."""
     res = jtt.decode(CASES["420"](), sparse_direct=True)
     with pytest.raises(ValueError):
         jtt.to_rgb8_device(res, device="cpu", **kwargs)

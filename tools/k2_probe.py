@@ -60,8 +60,9 @@ TIMELINE = [
     ("    __syncthreads();  // every thread's copies; the last strip's tiles and stage are free\n",
      "    __syncthreads();  // every thread's copies; the last strip's tiles and stage are free\n"
      "    if (tid == 0 && it < 9) T[1 + it * 4] = stamp();\n"),
-    ("    __syncthreads();\n    multiply_strip(",
-     "    __syncthreads();\n    if (tid == 0 && it < 9) T[2 + it * 4] = stamp();\n    multiply_strip("),
+    ("    multiply_strip(a_hi, a_lo, out_s, bf, q, two_a, warp, lane);\n",
+     "    if (tid == 0 && it < 9) T[2 + it * 4] = stamp();\n"
+     "    multiply_strip(a_hi, a_lo, out_s, bf, q, two_a, warp, lane);\n"),
     ("    done = strip;\n  }\n", "    if (tid == 0 && it < 9) T[3 + it * 4] = stamp();\n"
      "    done = strip;\n  }\n"),
 ]
