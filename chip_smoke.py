@@ -6,8 +6,10 @@ Drives the port's main paths on the card at the size users run: the
 serving decode, a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
 JPEGs through ``decode_stream_rgb(..., device="cuda")``, image by image
 and in groups; the batch decode ``decode_batch_rgb``; the v1 wires; the
-thumbnail decode at 1/2, 1/4 and 1/8; and the device encode, the same 8
-images through ``encode_rgb(..., device="cuda")``. In order:
+thumbnail decode at 1/2, 1/4 and 1/8; the device encode, the same 8
+images through ``encode_rgb(..., device="cuda")``; the device entropy
+decode ``decode_baseline_device``; and the batch step ``full_step``. In
+order:
 
 1. environment: the card, its power limit, torch, CUDA, nvcc, triton;
 2. build: the CUDA kernels (nvcc, sm_90a) and the native scanner (g++);
@@ -81,14 +83,36 @@ images through ``encode_rgb(..., device="cuda")``. In order:
 13. stripes: ``decode_rgb_stripes`` of one image at 16 MCU rows, 8
    stripes of 3 K1 launches each, bit-equal when concatenated to the
    card's ``to_rgb8_device``; the peak device memory of the stripe walk
-   beside the full decode's (``torch.cuda.max_memory_allocated``).
+   beside the full decode's (``torch.cuda.max_memory_allocated``);
+14. device scan (K3): the 8 sources encoded on the card at restart
+   intervals of 128, 16 and 4 MCUs (128, 1,024 and 4,096 segments), and
+   one of the slice's streams without restart markers (one segment),
+   through ``decode_baseline_device``, one K3 launch per image: every
+   image's segments equal to the host scan's coefficients, and through the
+   dense transform (K1) RGB equal to the host-scan path's, bit for bit; K3
+   equal to its plain version at 16 and 4; by interval, K3's time with
+   its output's zero fill (CUDA events, warm and L2-flushed) with ns per
+   symbol of the longest segment, its bound, the host prepass, the
+   upload, the entry end to end and the port's host scan of the same
+   images; K3 equal to its plain version on a corrupt copy of one
+   image's segments, and to the host scan on gray, 4:4:4 and 4:2:2
+   streams;
+15. full step: ``full_step`` on the slice's coefficient planes (Y
+   [8, 256, 256, 64] int16), 3 K1 and 3 K2 launches, its RGB (2 levels on
+   <= 1e-4) and its requantised Y, Cb and Cr (1 on <= 1e-3) against the
+   step with the plain versions, the chroma K2 calls also against their
+   plain version on the same stacked planes, its four histograms equal to
+   the host gather of its own requantised blocks (and to the plain step's
+   where the requantised blocks are equal); the step's time; its K1 and
+   K2 calls on the luma against their plain versions and ``torch.matmul``
+   in CUDA events, L2 flushed.
 
 Each phase sets the kernels' launch counts to 0 just before the path it
 drives and reads them just after. Any failure raises and the script
 exits non-zero. The line before the last is a JSON record of the
-kernels (K1, one entry per K1 variant, K2 and one entry per K2 box of
-9: launches on the main paths, kernel time, plain and library time,
-bound); the last line is
+kernels (K1, one entry per K1 variant, K2, one entry per K2 box of 9,
+K3 at each restart interval, and the K1 and K2 calls of ``full_step``: launches on the main paths, kernel
+time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
 of this repo only the port, ``jpeglibrary_tpu_torch``.
@@ -110,6 +134,17 @@ K1_SOURCE = "jpeglibrary_tpu_torch/csrc/dequant_idct.cu"
 K1_REPLACES = "jpeglibrary_tpu/ops/pallas_kernels.py:57"
 K2_SOURCE = "jpeglibrary_tpu_torch/csrc/fdct_quant.cu"
 K2_REPLACES = "jpeglibrary_tpu/ops/pallas_kernels.py:99"
+K3_SOURCE = "jpeglibrary_tpu_torch/csrc/huffman_scan.cu"
+K3_REPLACES = "jpeglibrary_tpu/ops/device_scan.py:121"  # _compiled_decoder: XLA, not Pallas
+# The device scan's restart intervals, in MCUs per segment: one MCU row of a
+# 2048x2048 4:2:0 image (128 segments), 16 (1,024) and 4 (4,096); and a
+# stream without restart markers (one segment) besides. The plain version
+# steps once per symbol of the longest segment, some 100 small launches a
+# step, so it is timed only where segments are short.
+RESTART_INTERVALS = (128, 16, 4)
+PLAIN_RIS = (16, 4)
+CORRUPT_BYTES = 2000  # changed in one image's 4,096 segments at ri 4
+K3_OPS_PER_SYMBOL = 24  # integer operations of K3's loop body per symbol, counted in its source
 KERNEL_BLOCKS = (65536, 16384)  # Y and each chroma plane of a 2048x2048 4:2:0 image
 LEVEL_SHIFTS = (128, 2048)
 # K1's variants: (record key, label, quant tables, blocks per table, n).
@@ -150,13 +185,14 @@ def check(ok, what):
         raise SystemExit(f"chip_smoke: check failed: {what}")
 
 
-def device_ms(*fns, runs=TIMED_RUNS, warmup=3):
+def device_ms(*fns, runs=TIMED_RUNS, warmup=3, flush=None):
     """Median device milliseconds of each of ``fns``, timed in turns with
     CUDA events, ``runs`` calls each. A spin kernel ahead of each start
     event keeps the card busy while the host enqueues the call, so the
     time excludes the host's launch cost (an idle card would wait for it
     between the events); the device's own gap before and after a launch,
-    about 5 us on the H100, stays in it."""
+    about 5 us on the H100, stays in it. With ``flush``, a write of all of
+    it ahead of the spin kernel empties the L2 before each call."""
     for fn in fns:
         for _ in range(warmup):
             fn()
@@ -166,6 +202,8 @@ def device_ms(*fns, runs=TIMED_RUNS, warmup=3):
         for fn, ts in zip(fns, times):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if flush is not None:
+                flush.zero_()
             torch.cuda._sleep(SPIN_CYCLES)
             start.record()
             fn()
@@ -175,32 +213,57 @@ def device_ms(*fns, runs=TIMED_RUNS, warmup=3):
     return [statistics.median(ts) for ts in times]
 
 
-def kernel_ms(*fns, runs=TIMED_RUNS, rounds=5, flush=None):
+def kernel_ms(*fns, runs=TIMED_RUNS, rounds=5, flush=None, retries=20):
     """Mean device milliseconds per call of each of ``fns``: the summed
     durations of the kernels the call launched, as ``torch.profiler``
     (CUPTI) records them, so without the launch gaps that the events of
     :func:`device_ms` include. Timed in ``rounds`` turns of ``runs /
     rounds`` calls each. With ``flush``, each call is preceded by a write of
     all of it (its fill kernels are not counted), so the call finds its
-    inputs in device memory and not in the L2."""
+    inputs in device memory and not in the L2.
+
+    CUPTI loses kernel records now and then, at times a whole window's
+    (on the H100, in one run, every window of one K2 box's calls). A
+    function launches the same
+    kernels in every window, so a window is full when it holds as many
+    records as the most any of the function's windows held; windows short
+    of that are timed again, up to ``retries`` more per function, until
+    ``rounds`` are full, and the mean is over the full windows alone."""
     activity = [torch.profiler.ProfilerActivity.CUDA]
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     per = runs // rounds
-    totals = [0.0] * len(fns)
+
+    def window(fn):
+        with torch.profiler.profile(activities=activity) as prof:
+            for _ in range(per):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Fill" not in e.key and "Memset" not in e.key]
+        return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows)
+
+    windows = [[] for _ in fns]
     for _ in range(rounds):
-        for i, fn in enumerate(fns):
-            with torch.profiler.profile(activities=activity) as prof:
-                for _ in range(per):
-                    if flush is not None:
-                        flush.zero_()
-                    fn()
-                torch.cuda.synchronize()
-            totals[i] += sum(e.self_device_time_total for e in prof.key_averages()
-                             if e.device_type == torch.autograd.DeviceType.CUDA
-                             and "Fill" not in e.key and "Memset" not in e.key)
-    return [total / (per * rounds) / 1e3 for total in totals]  # profiler microseconds
+        for fn, ws in zip(fns, windows):
+            ws.append(window(fn))
+    out = []
+    for fn, ws in zip(fns, windows):
+        for _ in range(retries):
+            full = max(ws)[0]
+            if full and sum(n == full for n, _ in ws) >= rounds:
+                break
+            ws.append(window(fn))
+        full = max(ws)[0]
+        if full == 0:
+            raise RuntimeError(f"the profiler recorded no kernel in {len(ws)} windows")
+        kept = [t for n, t in ws if n == full]
+        out.append(sum(kept) / (per * len(kept)) / 1e3)  # profiler microseconds
+    return out
 
 
 def wall_ms(fn, runs=TIMED_RUNS, warmup=3):
@@ -246,6 +309,7 @@ def reset_counts():
     kernels.dequantize_idct_shift.launches = 0
     kernels.fdct_quantize.launches = 0
     kernels.fdct_quantize.launches_by_box.clear()
+    kernels.huffman_scan.launches = 0
 
 
 def check_close(got, want, what, share=1e-4):
@@ -1345,21 +1409,25 @@ def phase_encode(record, sources, dev):
 
     # The stage is K2 alone: the pad and the box run inside its load. The
     # runtime API's launches count every kernel of the window; CUPTI's kernel
-    # records can miss the first few after the profiler starts, so they only
-    # name the kernels.
+    # records can miss the first few after the profiler starts, or all of a
+    # window's, so they only name the kernels, and a window without one is
+    # run again.
     stage()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(STAGE_RUNS):
-            stage()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    api_launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    kernels_seen = {e.key: e.count for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA}
+    for window in range(1, 11):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(STAGE_RUNS):
+                stage()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        api_launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        kernels_seen = {e.key: e.count for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA}
+        if kernels_seen:
+            break
     log(f"encode: the device stage over {STAGE_RUNS} runs: {api_launches} kernel launches; "
-        f"kernels recorded: {kernels_seen}")
+        f"kernels recorded: {kernels_seen} (profiler window {window})")
     check(api_launches == 3 * STAGE_RUNS and kernels_seen
           and all("fdct_quant" in k for k in kernels_seen),
           ("the device stage ran other kernels than 3 x K2", api_launches, kernels_seen))
@@ -1375,6 +1443,331 @@ def phase_encode(record, sources, dev):
         f"{fwd_ms:.6f} ms (host clock to the int16 planes on the host, median of "
         f"{TIMED_RUNS}); host emission {statistics.median(emit_s) * 1e3:.6f} ms "
         f"(median of {len(jobs)})")
+
+
+def segment_symbols(coeffs, n_blocks):
+    """The Huffman symbols each row of the device scan's output took to
+    decode (int64 [segments]), of its first ``n_blocks`` blocks: per block
+    one DC symbol, one per non-zero AC coefficient, a ZRL per 16 zeros
+    ahead of one, and an EOB unless its last coefficient is non-zero."""
+    blocks = coeffs.reshape(coeffs.shape[0], -1, 64)
+    nz = blocks[..., 1:] != 0
+    col = torch.arange(63, device=coeffs.device)
+    last = torch.cummax(torch.where(nz, col, -1), dim=-1).values
+    prev = torch.cat([torch.full_like(last[..., :1], -1), last[..., :-1]], dim=-1)
+    zrl = ((col - prev - 1) // 16 * nz).sum(-1)
+    per_block = 1 + nz.sum(-1) + zrl + (last[..., -1] < 62)
+    valid = torch.arange(blocks.shape[1], device=coeffs.device)[None] < n_blocks[:, None]
+    return (per_block * valid).sum(-1)
+
+
+def k3_bound(buf_bytes, out_bytes, n_tables, symbols):
+    """K3's bound: the segment matrix and the tables in, the int32 output
+    written once (the wrapper's zero fill is its choice, not the
+    function's work); K3_OPS_PER_SYMBOL integer operations per symbol
+    decoded (at the CUDA cores' fp32 rate, which their int32 rate does not
+    exceed)."""
+    n_bytes = buf_bytes + n_tables * (256 + 18 + 19 + 256) * 4 + out_bytes
+    return bound(n_bytes, 0, symbols * K3_OPS_PER_SYMBOL)
+
+
+def k3_args(buf, const, dev):
+    """K3's wrapper arguments for :func:`prepare_scan`'s output, on ``dev``:
+    (tensors, max_blocks)."""
+    arrays = (buf, const["comp_of"], const["mcu_counts"], *const["tables"])
+    return ([torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays],
+            int(const["mcu_counts"].max()) * const["bpm"])
+
+
+def phase_device_scan(sources, datas, dev):
+    """K3, the device entropy decode: ``decode_baseline_device`` of the
+    sources encoded on the card at RESTART_INTERVALS, and of one of
+    ``datas`` (no restart markers: one segment), each image's segments
+    equal to the host scan's coefficients, and, through the dense transform
+    (K1), RGB equal to the host-scan path's; K3 equal to its plain version
+    at PLAIN_RIS; then the times by restart interval. Returns one record
+    per interval; where the plain version is not run (it would take
+    minutes to hours), the record's ``plain_ms`` and ``max_abs_err`` are
+    None and K3 is held to the host scan alone."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.models.decoder import quant_tables
+    from jpeglibrary_tpu_torch.ops import device_scan, kernels
+
+    start = time.perf_counter()
+    streams = {ri: [jtt.encode_rgb(rgb, 75, device=dev, restart_interval=ri) for rgb in sources]
+               for ri in RESTART_INTERVALS}
+    streams[0] = datas[:1]
+    log(f"device scan: {len(RESTART_INTERVALS) * len(sources)} encodes on the card at restart "
+        f"intervals {RESTART_INTERVALS} in {time.perf_counter() - start:.3f} s")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    records = {}
+    for ri, batch in streams.items():
+        prep_s, host_s, inputs, results = [], [], [], []
+        for data in batch:
+            t0 = time.perf_counter()
+            inputs.append(device_scan.scan_inputs(data))
+            t1 = time.perf_counter()
+            results.append(jtt.decode(data, sparse_direct=True))
+            prep_s.append(t1 - t0)
+            host_s.append(time.perf_counter() - t1)
+        reset_counts()
+        outs = [device_scan.decode_baseline_device(data, device=dev) for data in batch]
+        torch.cuda.synchronize()
+        launches = kernels.huffman_scan.launches
+        log(f"device scan: ri {ri}: decode_baseline_device of {len(batch)} images: K3 launches "
+            f"{launches}")
+        check(launches == len(batch), (ri, "K3 launches", launches))
+
+        for i, ((coeffs, geo), (_, const, _), res) in enumerate(zip(outs, inputs, results)):
+            check(coeffs.device.type == dev.type and coeffs.dtype == torch.int32, coeffs.dtype)
+            want = torch.from_numpy(device_scan.segment_rows(
+                [res.coefficients[c.component_index] for c in geo.components], geo, ri))
+            got = coeffs.cpu()
+            check(got.shape == want.shape, (ri, i, tuple(got.shape), tuple(want.shape)))
+            check(torch.equal(got, want), (ri, i, "K3 differs from the host scan",
+                                           int((got != want).sum())))
+            rgb = jtt.transform_dense(device_scan.segment_planes(coeffs, const, geo),
+                                      quant_tables(res), geo, dev)
+            check(torch.equal(rgb, jtt.to_rgb8_device(res, device=dev)),
+                  (ri, i, "K3's planes through K1 differ from the host-scan path"))
+        log(f"device scan: ri {ri}: every image's segments equal the host scan's coefficients, "
+            "and through the dense transform (K1) its RGB equals to_rgb8_device of the host "
+            "scan, bit for bit")
+
+        buf, const, _ = inputs[0]
+        args, max_blocks = k3_args(buf, const, dev)
+        coeffs = outs[0][0]
+
+        def kernel():
+            return kernels.huffman_scan(*args, max_blocks=max_blocks)
+
+        plain_ms = max_abs = None
+        if ri in PLAIN_RIS:
+            plain, secs = timed(lambda: device_scan.decode_segments_plain(*args, max_blocks))
+            max_abs = int((plain - coeffs).abs().max())
+            plain_ms = secs * 1e3
+            check(max_abs == 0, (ri, "K3 differs from its plain version", max_abs))
+            log(f"device scan: ri {ri}: K3 equals its plain version on the card, image 0 "
+                f"(plain {plain_ms:.3f} ms, host clock, one run)")
+        # CUDA events around the wrapper: its zero fill of the output (about
+        # 10 us) and one launch gap are in the time, as they are in the path.
+        # The profiler's records missed calls of K3 here (at ri 0 none of 5
+        # warm calls was recorded), so K3 is timed by events alone.
+        runs = TIMED_RUNS if ri else 5
+        (warm,) = device_ms(kernel, runs=runs, warmup=1)
+        (cold,) = device_ms(kernel, runs=runs, warmup=1, flush=flush)
+        up_ms = wall_ms(lambda: torch.from_numpy(buf).to(dev), runs=runs)
+        e2e_ms = wall_ms(lambda: device_scan.decode_baseline_device(batch[0], device=dev),
+                         runs=5 if ri else 3, warmup=1)
+        counts = torch.from_numpy(const["mcu_counts"]).to(dev)
+        symbols = segment_symbols(coeffs, counts * const["bpm"])
+        longest, total = int(symbols.max()), int(symbols.sum())
+        n_tables = 2 * const["n_comps"]
+        b_ms, b_by = k3_bound(buf.nbytes, coeffs.numel() * 4, n_tables, total)
+        log(f"device scan: ri {ri}: {buf.shape[0]} segments, the longest {buf.shape[1] - 8} "
+            f"bytes; {total} symbols, at most {longest} in one segment; K3 with its zero fill "
+            f"{cold:.6f} ms L2 flushed, {warm:.6f} ms warm (CUDA events, median of {runs}; "
+            f"{warm * 1e6 / longest:.3f} ns per symbol of the longest segment; "
+            f"{b_ms / cold:.2%} of its {b_by} bound {b_ms:.6f} ms); host prepass (container "
+            "walk + prepare_scan) "
+            f"{statistics.median(prep_s) * 1e3:.6f} ms, upload {up_ms:.6f} ms, "
+            f"decode_baseline_device end to end {e2e_ms:.6f} ms (host clock, synchronised); "
+            f"the port's host scan JpegDecoder.decode(sparse_direct=True) "
+            f"{statistics.median(host_s) * 1e3:.6f} ms (median of {len(batch)} images)")
+        records[ri] = {
+            "name": f"huffman_scan[ri={ri}]", "route": "cuda", "source": K3_SOURCE,
+            "replaces": K3_REPLACES, "launches": launches, "max_abs_err": max_abs,
+            "ms": cold, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+        if ri == PLAIN_RIS[-1]:
+            corrupt = (buf, const, coeffs)
+    del flush
+
+    # A corrupt stream: bytes changed in the segments send the walk down codes
+    # the tables do not hold and past the rows' ends; K3 must still give its
+    # plain version's numbers (the JAX loop's), reading and writing nothing
+    # out of bounds.
+    buf, const, clean = corrupt
+    rng = np.random.default_rng(7)
+    flips = rng.choice(buf.size, CORRUPT_BYTES, replace=False)
+    bad = buf.copy()
+    bad.reshape(-1)[flips] ^= rng.integers(1, 256, CORRUPT_BYTES).astype(np.uint8)
+    args, max_blocks = k3_args(bad, const, dev)
+    got = kernels.huffman_scan(*args, max_blocks=max_blocks)
+    want = device_scan.decode_segments_plain(*args, max_blocks)
+    changed = int((got != clean).any(dim=1).sum())
+    check(torch.equal(got, want), "K3 differs from its plain version on a corrupt stream")
+    log(f"device scan: ri {PLAIN_RIS[-1]}, {CORRUPT_BYTES} bytes of image 0's segments changed: "
+        f"{changed} of {buf.shape[0]} segments decode otherwise, K3 equal to its plain version")
+
+    # The other layouts: one component, and 4:4:4 and 4:2:2 MCUs.
+    layouts = (
+        ("gray", jtt.encode_gray(sources[0][..., 1], 75, device=dev, restart_interval=4)),
+        ("4:4:4", jtt.encode_rgb(sources[0], 75, device=dev, subsampling="444",
+                                 restart_interval=4)),
+        ("4:2:2", jtt.encode_rgb(sources[0], 75, device=dev, subsampling="422",
+                                 restart_interval=4)),
+    )
+    for label, data in layouts:
+        coeffs, geo = device_scan.decode_baseline_device(data, device=dev)
+        res = jtt.decode(data, sparse_direct=True)
+        want = device_scan.segment_rows(
+            [res.coefficients[c.component_index] for c in geo.components], geo, 4)
+        check(torch.equal(coeffs.cpu(), torch.from_numpy(want)), (label, "K3 differs from the "
+                                                                   "host scan"))
+    log(f"device scan: {', '.join(label for label, _ in layouts)} at ri 4: K3 equals the host "
+        "scan's coefficients")
+    return records
+
+
+def phase_full_step(inputs, dev):
+    """``full_step`` on the slice's images' coefficient planes at full width
+    (Y [8, 256, 256, 64] int16, chroma [8, 128, 128, 64]): K1 and K2 launched
+    3 times each, RGB and the requantised Y, Cb and Cr against the step
+    with their plain versions on the card, the chroma K2 calls against
+    their plain version on the step's own planes, the four histograms
+    equal to the host gather of the step's own requantised blocks. Then
+    the step's time and records for its K1 and K2 calls on the luma."""
+    from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
+    from jpeglibrary_tpu_torch.ops import color, decode_stage, kernels
+    from jpeglibrary_tpu_torch.parallel import full_step, sharding
+
+    (y, cb, cr), (q_luma, q_chroma) = inputs
+    args = [torch.from_numpy(a).to(dev) for a in (y, cb, cr, q_luma, q_chroma)]
+    reset_counts()
+    rgb, requant, hists = full_step(*args, device=dev)
+    torch.cuda.synchronize()
+    k1_launches = kernels.dequantize_idct_shift.launches
+    k2_launches = kernels.fdct_quantize.launches
+    log(f"full step: full_step over {y.shape[0]} images, Y {tuple(y.shape)} chroma "
+        f"{tuple(cb.shape)} int16: K1 launches {k1_launches}, K2 launches {k2_launches}")
+    check(k1_launches == 3 and k2_launches == 3, ("full_step launches", k1_launches, k2_launches))
+    b = y.shape[0]
+    check(tuple(rgb.shape) == (b, SIZE, SIZE, 3) and rgb.dtype == torch.uint8, rgb.shape)
+    check(requant.shape == args[0].shape and requant.dtype == torch.int16, requant.shape)
+
+    idct = kernels.transform_matrix(dev)
+    fdct = kernels.fdct_matrix(dev)
+
+    def k1_plain(c, q, ls):
+        return decode_stage.dequantize_idct_shift(
+            c.reshape(-1, 64), q, c.numel() // 64, ls, idct).reshape(c.shape[:-1] + (8, 8))
+
+    def k2_plain_call(plane, q, ls, *, hs=1, vs=1, blocks=None):
+        return k2_plain(plane, q, ls, hs, vs, fdct)
+
+    # full_step hands back the requantised luma alone, as the JAX step does:
+    # the step runs once more through _step with the same kernels for its
+    # chroma, its other outputs equal to full_step's.
+    rgb_, requants, hists_ = sharding._step(*args, kernels.dequantize_idct_shift,
+                                            kernels.fdct_quantize)
+    check(torch.equal(rgb_, rgb) and torch.equal(requants[0], requant)
+          and torch.equal(hists_, hists), "_step's outputs differ from full_step's")
+    plain_rgb, plain_requants, plain_hists = sharding._step(*args, k1_plain, k2_plain_call)
+    check_close(rgb.cpu().numpy(), plain_rgb.cpu().numpy(), "full step: RGB vs plain")
+    for name, got_q, want_q in zip(("Y", "Cb", "Cr"), requants, plain_requants):
+        check(got_q.shape == want_q.shape and got_q.dtype == torch.int16, (name, got_q.shape))
+        d = (got_q.to(torch.int32) - want_q.to(torch.int32)).abs()
+        n_diff = int((d > 0).sum())
+        log(f"full step: requantised {name} {tuple(got_q.shape)} vs plain: max |diff| "
+            f"{int(d.max())}, {n_diff}/{d.numel()} differ")
+        check(int(d.max()) <= 1 and n_diff <= d.numel() * 1e-3,
+              ("requant", name, int(d.max()), n_diff))
+    # The step's chroma K2 calls, 2x2 boxes of [B*H, W] planes with block rows
+    # from every image, against their plain version on the same planes.
+    _, cb2, cr2 = color.rgb_to_ycbcr(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+    for name, plane in (("Cb", cb2), ("Cr", cr2)):
+        k2_check(f"full step {name} stacked", plane.reshape(b * SIZE, SIZE), args[4], 128, 2, 2,
+                 fdct)
+
+    want = np.zeros((4, 256), np.int64)
+    for img in requants[0].cpu().numpy():
+        dc, ac = host_encode_stage.dc_ac_symbol_frequencies(
+            host_encode_stage.mcu_order_blocks(img, 2, 2))
+        want[0] += dc
+        want[1] += ac
+    for plane in requants[1:]:
+        for img in plane.cpu().numpy():
+            dc, ac = host_encode_stage.dc_ac_symbol_frequencies(img.reshape(-1, 64))
+            want[2] += dc
+            want[3] += ac
+    check(np.array_equal(hists.cpu().numpy(), want), "full_step's histograms differ from the "
+          "host gather of its requantised blocks")
+    same = all(torch.equal(g, w) for g, w in zip(requants, plain_requants))
+    check(not same or torch.equal(plain_hists, hists),
+          "the plain step's histograms differ where its requantised blocks are equal")
+    log(f"full step: the 4 histograms equal the host gather of the step's own requantised "
+        f"blocks ({int(want[0].sum())} luma and {int(want[2].sum())} chroma DC symbols); "
+        f"the plain step's requantised blocks {'equal' if same else 'differ from'} the step's, "
+        f"its histograms {'equal' if torch.equal(plain_hists, hists) else 'differ'}")
+
+    def step():
+        return full_step(*args, device=dev)
+
+    step_ms = wall_ms(step, runs=5, warmup=1)
+    (step_kernel_ms,) = kernel_ms(step, runs=5)
+    log(f"full step: {step_ms:.6f} ms per step of {b} images (host clock, synchronised, median "
+        f"of 5), {step_kernel_ms:.6f} ms of kernels (warm, mean of 5)")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    log("full step: one step's kernel time by kernel, the largest: " + "; ".join(
+        f"{e.key[:90]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms" for e in rows[:6]))
+
+    # The step's K1 and K2 calls on the luma, each beside its plain version
+    # and one torch.matmul (as in the kernel phases), in CUDA events with the
+    # L2 flushed: the profiler once recorded none of this K2's calls here.
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    coeffs, quant = args[0], args[3]
+    n_blocks = coeffs.numel() // 64
+    k1_diff = int((kernels.dequantize_idct_shift(coeffs, quant, 128)
+                   - k1_plain(coeffs, quant, 128)).abs().max())
+    check(k1_diff <= 1, ("full step K1", k1_diff))
+    deq = (coeffs.reshape(-1, 64).to(torch.int32) * quant).to(torch.float32)
+    y2 = color.rgb_to_ycbcr(rgb[..., 0], rgb[..., 1], rgb[..., 2])[0].reshape(b * SIZE, SIZE)
+    k2_diff = k2_check("full step Y", y2, quant, 128, 1, 1, fdct)
+    cut = (y2.to(torch.float32) - 128).reshape(-1, 8, SIZE // 8, 8).permute(0, 2, 1, 3)
+    cut = cut.reshape(-1, 64).contiguous()
+    times = device_ms(lambda: k1_plain(coeffs, quant, 128),
+                      lambda: kernels.dequantize_idct_shift(coeffs, quant, 128),
+                      lambda: torch.matmul(deq, idct),
+                      lambda: k2_plain(y2, quant, 128, 1, 1, fdct),
+                      lambda: kernels.fdct_quantize(y2, quant, 128),
+                      lambda: torch.matmul(cut, fdct), flush=flush)
+    del flush
+    records = {}
+    for key, name, source, replaces, launches, diff, (p_ms, k_ms, lib_ms), (b_ms, b_by) in (
+            ("k1", "dequantize_idct_shift", K1_SOURCE, K1_REPLACES, k1_launches, k1_diff,
+             times[:3], k1_bound(n_blocks, 1, 8, 2)),
+            ("k2", "fdct_quantize", K2_SOURCE, K2_REPLACES, k2_launches, k2_diff, times[3:],
+             k2_bound(n_blocks, 1))):
+        log(f"full step: {name} on the Y plane ({n_blocks} blocks), L2 flushed: {k_ms:.6f} ms "
+            f"({b_ms / k_ms:.1%} of its {b_by} bound {b_ms:.6f} ms), plain {p_ms:.6f} ms, "
+            f"torch.matmul {lib_ms:.6f} ms (CUDA events, median of {TIMED_RUNS} in turns); "
+            f"max |diff| against plain {diff}")
+        records[key] = {
+            "name": f"{name}[full_step]", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": diff, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    return records
+
+
+def step_inputs(datas):
+    """``full_step``'s inputs from the host scans of ``datas`` (same
+    geometry and tables): (Y, Cb, Cr) int16 coefficient planes stacked
+    over the images, and the luma and chroma zig-zag quant tables."""
+    from jpeglibrary_tpu_torch.models.decoder import quant_tables
+    from jpeglibrary_tpu_torch.parallel.batch import scan
+
+    results = [scan(d) for d in datas]
+    comps = results[0].geometry.components
+    planes = tuple(np.stack([r.coefficients[c.component_index] for r in results]).astype(np.int16)
+                   for c in comps)
+    q = quant_tables(results[0]).astype(np.int32)
+    return planes, (q[0], q[1])
 
 
 def main():
@@ -1396,9 +1789,13 @@ def main():
     cmyk_launches = phase_cmyk(sl["sources"], dev)
     phase_fancy_u16(sl, dev)
     stripe_launches = phase_stripes(sl, dev)
+    scan_records = phase_device_scan(sl["sources"], sl["datas"], dev)
+    step_records = phase_full_step(step_inputs(sl["datas"]), dev)
     log(f"K1 launches on the later paths: fancy {3 * N_IMAGES}, u16 {3 * N_IMAGES}, "
-        f"stripes {stripe_launches}; K2 on the CMYK path {cmyk_launches}")
-    print(json.dumps({"kernels": [*records.values(), record_k2, *box_records.values()]}))
+        f"stripes {stripe_launches}, full_step {step_records['k1']['launches']}; K2 on the "
+        f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}")
+    print(json.dumps({"kernels": [*records.values(), record_k2, *box_records.values(),
+                                  *scan_records.values(), *step_records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

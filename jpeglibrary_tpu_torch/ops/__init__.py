@@ -1,1 +1,3 @@
-"""Device ops of the PyTorch port: decode stage, colour, K1 and the v2 pipeline."""
+"""Device ops of the PyTorch port: the decode and encode stages, colour,
+the wire pipeline, the device entropy decode, and the kernels K1, K2 and
+K3 with their wrappers (``kernels``)."""

@@ -51,11 +51,23 @@ _K2_ARGS = [
     ctypes.c_int,                      # level_shift
     ctypes.c_void_p,                   # cudaStream_t
 ]
+_K3_ARGS = [
+    ctypes.c_void_p, ctypes.c_int64,   # segments, row width
+    ctypes.c_int64,                    # n_segments
+    ctypes.c_void_p, ctypes.c_int,     # comp_of, blocks per MCU
+    ctypes.c_int,                      # n_comps
+    ctypes.c_void_p,                   # mcu_counts
+    ctypes.c_void_p, ctypes.c_void_p,  # lookahead, maxcode
+    ctypes.c_void_p, ctypes.c_void_p,  # valoffset, values
+    ctypes.c_void_p, ctypes.c_int64,   # out, max_blocks
+    ctypes.c_void_p,                   # cudaStream_t
+]
 _ENTRY_POINTS = {
     "jpx_dequant_idct_i32": _K1_ARGS,
     "jpx_dequant_idct_i16": _K1_ARGS,
     "jpx_fdct_quant_i32": _K2_ARGS,
     "jpx_fdct_quant_u8": _K2_ARGS,
+    "jpx_huffman_scan": _K3_ARGS,
 }
 
 

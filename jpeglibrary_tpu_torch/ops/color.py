@@ -1,6 +1,6 @@
-"""YCbCr -> RGB with the reference's 16-bit fixed-point arithmetic.
+"""YCbCr <-> RGB with the reference's 16-bit fixed-point arithmetic.
 
-Port of ``jpeglibrary_tpu/ops/color.py`` (decode side), bit-exact: the
+Port of ``jpeglibrary_tpu/ops/color.py``, both directions, bit-exact: the
 same constants, int32 products, arithmetic ``>>`` and clamps.
 """
 
@@ -40,3 +40,30 @@ def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
     g = (y + g_off).clamp(0, 255).to(torch.uint8)
     b = (y + cb_b).clamp(0, 255).to(torch.uint8)
     return r, g, b
+
+
+# Encode side: the RGB -> YCbCr converter's constants.
+_Y_R = _fix(float(np.float32(0.299)))
+_Y_G = _fix(float(np.float32(0.587)))
+_Y_B = _fix(float(np.float32(0.114)))
+_CB_R = -_fix(float(np.float32(0.168735892)))
+_CB_G = -_fix(float(np.float32(0.331264108)))
+_CB_B = _fix(float(np.float32(0.5)))  # also Cr <- R
+_CR_G = -_fix(float(np.float32(0.418687589)))
+_CR_B = -_fix(float(np.float32(0.081312411)))
+_CBCR_OFFSET = 128 << _SHIFT
+
+
+def rgb_to_ycbcr(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
+    """uint8 R/G/B planes -> (y, cb, cr) uint8 planes, with the
+    reference's 0.5-epsilon rounding fudge that makes a clamp
+    unnecessary; the int32 results are cast as the JAX version casts
+    them."""
+    r = r.to(torch.int32)
+    g = g.to(torch.int32)
+    b = b.to(torch.int32)
+    fudge = _CBCR_OFFSET + _ONE_HALF - 1
+    y = (_Y_R * r + _Y_G * g + (_Y_B * b + _ONE_HALF)) >> _SHIFT
+    cb = (_CB_R * r + _CB_G * g + (_CB_B * b + fudge)) >> _SHIFT
+    cr = ((_CB_B * r + fudge) + _CR_G * g + _CR_B * b) >> _SHIFT
+    return y.to(torch.uint8), cb.to(torch.uint8), cr.to(torch.uint8)

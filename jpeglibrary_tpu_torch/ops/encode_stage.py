@@ -9,11 +9,17 @@ component. The integer ops are bit-exact against the numpy originals;
 :func:`pad_to_grid` -> :func:`subsample_box` -> :func:`fdct_quantize` is
 the plain PyTorch version of K2 and, like the Pallas kernel it mirrors,
 is within 1 LSB of the butterfly FDCT.
+
+:func:`symbol_histograms_device` is the port of the JAX package's device
+symbol statistics (``encode_stage.py:320-390``): the DC and AC Huffman
+symbol histograms of MCU-ordered blocks, bit-identical to the host
+gather ``dc_ac_symbol_frequencies``, in plain PyTorch ops (XLA in the JAX
+package, not a Pallas kernel).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -107,3 +113,58 @@ def forward(planes: Sequence, quants, comp_params: Sequence[Tuple[int, int, int,
                                       mcus_per_column, level_shift))
     host = torch.cat([o.reshape(-1) for o in outs]).cpu()
     return [part.view(o.shape) for part, o in zip(host.split([o.numel() for o in outs]), outs)]
+
+
+def _bit_count_device(a: torch.Tensor) -> torch.Tensor:
+    """The bits of each value, exactly, in int32: 16 threshold compares
+    (a float log2 can be off by one at powers of two); 0 gives 0."""
+    a = a.to(torch.int32)
+    out = torch.zeros(a.shape, dtype=torch.int32, device=a.device)
+    for k in range(16):
+        out += (a >= (1 << k)).to(torch.int32)
+    return out
+
+
+def symbol_histograms_device(blocks: torch.Tensor,
+                             n_valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DC and AC Huffman symbol histograms of int [B, N, 64] zig-zag
+    blocks in MCU walk order, each batch row one component instance with
+    its own DC predictor chain; ``n_valid`` [B] counts the real blocks of
+    each row (the rest are padding and count nothing). Returns
+    (dc_freq [256], ac_freq [256]) int32, summed over the batch, on the
+    blocks' device: the DC categories of successive differences (the
+    first from 0), the AC (run, size) symbols, a ZRL per 16 zeros of a
+    run and an EOB per block whose last coefficient is zero."""
+    b, n, _ = blocks.shape
+    dev = blocks.device
+    i32 = torch.int32
+    blocks = blocks.to(i32)
+    if n_valid is None:
+        valid = torch.ones((b, n), dtype=i32, device=dev)
+    else:
+        n_valid = torch.as_tensor(n_valid, device=dev)
+        valid = (torch.arange(n, device=dev)[None, :] < n_valid[:, None]).to(i32)
+
+    dc = blocks[:, :, 0]
+    prev = torch.cat([torch.zeros((b, 1), dtype=i32, device=dev), dc[:, :-1]], dim=1)
+    dc_syms = _bit_count_device((dc - prev).abs())
+    dc_freq = torch.zeros(256, dtype=i32, device=dev)
+    dc_freq.index_add_(0, dc_syms.reshape(-1), valid.reshape(-1))
+
+    ac = blocks[:, :, 1:]  # [B, N, 63]
+    nz = ac != 0
+    col = torch.arange(63, dtype=i32, device=dev)
+    marked = torch.where(nz, col, -1)
+    cmax = torch.cummax(marked, dim=-1).values
+    prev_nz = torch.cat([torch.full((b, n, 1), -1, dtype=i32, device=dev), cmax[:, :, :-1]],
+                        dim=2)
+    runs = col - prev_nz - 1
+    sizes = _bit_count_device(ac.abs())
+    syms = ((runs % 16) << 4) | sizes
+    w = nz.to(i32) * valid[:, :, None]
+    ac_freq = torch.zeros(256, dtype=i32, device=dev)
+    ac_freq.index_add_(0, torch.where(nz, syms, 0).reshape(-1), w.reshape(-1))
+    eob = ((cmax[:, :, -1] < 62).to(i32) * valid).sum(dtype=i32)
+    ac_freq[0xF0] += ((runs // 16) * w).sum(dtype=i32)
+    ac_freq[0] += eob
+    return dc_freq, ac_freq

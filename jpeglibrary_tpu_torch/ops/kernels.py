@@ -1,4 +1,4 @@
-"""The port's two kernels and their wrappers.
+"""The port's three kernels and their wrappers.
 
 K1, the decode transform: dequantize + un-zigzag + 2-D IDCT + round +
 level shift over a batch of 8x8 blocks. Port of the decode half of
@@ -32,6 +32,18 @@ unpadded [H, W] component plane itself and runs the product on the
 tensor cores with an exact bf16 split of F (:func:`fdct_split`), and
 takes the plain version (``encode_stage`` pad, subsample, fdct_quantize)
 only for a CPU tensor.
+
+K3, the entropy decode: the baseline Huffman decode of restart segments,
+one symbol at a time per segment, into dense zig-zag coefficients. Port
+of ``jpeglibrary_tpu/ops/device_scan.py:121-245`` ``_compiled_decoder``,
+an XLA ``while_loop`` (not Pallas) whose lanes were the segments.
+:func:`huffman_scan` launches ``csrc/huffman_scan.cu`` on CUDA tensors,
+one thread per segment, and takes the plain version
+(``device_scan.decode_segments_plain``) only for CPU tensors. Its bound
+on the card is not bytes: each symbol is a chain of dependent steps
+(a table lookup, the value bits, the next bit position), so the segment
+with the most symbols sets its time; more and shorter segments spread
+the chains over more threads.
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ import torch
 
 from ..host.ops.decode_stage import fused_transform_matrix, scaled_folded_matrix
 from ..host.ops.encode_stage import fdct_zigzag_matrix
-from . import _build, decode_stage, encode_stage
+from . import _build, decode_stage, device_scan, encode_stage
 
 
 @functools.lru_cache(maxsize=16)
@@ -251,3 +263,76 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
 
 fdct_quantize.launches = 0
 fdct_quantize.launches_by_box = {}
+
+SCAN_MAX_COMPS = 4  # components in one scan (T.81 B.2.3)
+SCAN_MAX_BPM = 10  # blocks in one MCU (T.81 B.2.3)
+
+
+def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Tensor,
+                 lookahead: torch.Tensor, maxcode: torch.Tensor, valoffset: torch.Tensor,
+                 values: torch.Tensor, *, max_blocks: int) -> torch.Tensor:
+    """uint8 [S, W] unstuffed, 0xFF-padded restart segments -> int32
+    [S, max_blocks * 64] zig-zag coefficients, each segment's blocks in
+    MCU order from its row's start and zeros after them.
+
+    ``comp_of`` int32 [bpm] is the component of each block of an MCU,
+    ``mcu_counts`` int32 [S] each segment's MCUs, and the int32 tables
+    lookahead [T, 256], maxcode [T, 18], valoffset [T, 19] and values
+    [T, 256] are ``device_scan.prepare_scan``'s, T = 2 * components (DC
+    table at 2i, AC at 2i + 1). Every predictor starts at 0 in every
+    segment.
+
+    On CPU tensors it runs the plain version
+    (``device_scan.decode_segments_plain``); on CUDA tensors it launches
+    ``csrc/huffman_scan.cu`` into a zeroed output, or raises.
+    ``huffman_scan.launches`` counts the kernel's launches."""
+    tables = (lookahead, maxcode, valoffset, values)
+    if buf.dtype != torch.uint8 or buf.dim() != 2 or buf.shape[1] < 1:
+        raise ValueError(f"segments must be uint8 [S, W], got {buf.dtype} {tuple(buf.shape)}")
+    n_segs = buf.shape[0]
+    n_tables = lookahead.shape[0] if lookahead.dim() == 2 else 0
+    for name, t, width in zip(("lookahead", "maxcode", "valoffset", "values"), tables,
+                              (256, 18, 19, 256)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (n_tables, width):
+            raise ValueError(f"{name} must be int32 [{n_tables}, {width}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if n_tables % 2 or not 1 <= n_tables // 2 <= SCAN_MAX_COMPS:
+        raise ValueError(f"{n_tables} tables are not one DC and one AC table for 1 to "
+                         f"{SCAN_MAX_COMPS} components")
+    if comp_of.dtype != torch.int32 or comp_of.dim() != 1 or not 1 <= comp_of.shape[0] <= SCAN_MAX_BPM:
+        raise ValueError(f"comp_of must be int32 [1..{SCAN_MAX_BPM}], got {comp_of.dtype} "
+                         f"{tuple(comp_of.shape)}")
+    if mcu_counts.dtype != torch.int32 or tuple(mcu_counts.shape) != (n_segs,):
+        raise ValueError(f"mcu_counts must be int32 [{n_segs}], got {mcu_counts.dtype} "
+                         f"{tuple(mcu_counts.shape)}")
+    if max_blocks < 1:
+        raise ValueError(f"max_blocks must be at least 1, got {max_blocks}")
+    device = buf.device
+    for t in (comp_of, mcu_counts, *tables):
+        if t.device != device:
+            raise ValueError(f"a table on {t.device}, the segments on {device}")
+    if device.type == "cpu":
+        return device_scan.decode_segments_plain(buf, comp_of, mcu_counts, *tables, max_blocks)
+    if device.type != "cuda":
+        raise ValueError(f"no K3 kernel for device {device}")
+    if not all(t.is_contiguous() for t in (buf, comp_of, mcu_counts, *tables)):
+        raise ValueError("the segments and tables must be contiguous")
+
+    out = torch.zeros((n_segs, max_blocks * 64), dtype=torch.int32, device=device)
+    if n_segs == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        err = lib.jpx_huffman_scan(
+            buf.data_ptr(), buf.shape[1], n_segs, comp_of.data_ptr(), comp_of.shape[0],
+            n_tables // 2, mcu_counts.data_ptr(), *(t.data_ptr() for t in tables),
+            out.data_ptr(), max_blocks, torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        huffman_scan.launches += 1
+    return out
+
+
+huffman_scan.launches = 0

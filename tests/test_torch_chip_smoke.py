@@ -5,11 +5,13 @@ quant tables; the port's CPU path (chip_smoke.py's golden) decodes them
 within the device contract of the host golden; and without a CUDA
 device the script exits non-zero and prints no result."""
 
+import contextlib
 import importlib.util
 import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -206,3 +208,132 @@ def test_u16_check_counts_a_wrapped_sample_as_one(smoke):
     got[0, 0, 0] = 4094 << 4
     with pytest.raises(SystemExit):
         smoke.check_u16_close(got, want, 12, "no wrap")
+
+
+@pytest.mark.parametrize("ri", [0, 2, 5, 1000])
+def test_segment_rows_are_the_device_scans_rows(smoke, ri):
+    """chip_smoke.py holds K3 to the host scan through
+    device_scan.segment_rows: the host decode's planes laid out as the
+    device scan's rows equal the JAX device scan's output and the port's
+    plain version, tail segment and an interval longer than the image
+    included."""
+    from jpeglibrary_tpu.ops import device_scan as ref_scan
+
+    from jpeglibrary_tpu_torch.ops import device_scan
+
+    data = jtt.encode_rgb(smoke.synth_image(ri, 80), 75, device="cpu", restart_interval=ri)
+    res = jtt.decode(data, sparse_direct=True)
+    geo = res.geometry
+    rows = device_scan.segment_rows(
+        [res.coefficients[c.component_index] for c in geo.components], geo, ri)
+    np.testing.assert_array_equal(rows, np.asarray(ref_scan.decode_baseline_device(data)[0]))
+    got, _ = device_scan.decode_baseline_device(data, device="cpu")
+    np.testing.assert_array_equal(rows, got.numpy())
+
+
+def test_segment_symbols_count_the_host_gathers_symbols(smoke):
+    """The symbols chip_smoke.py counts per segment (for ns per symbol and
+    K3's bound) are those the host gather's histograms count in the
+    segment's blocks: one DC symbol a block, and the AC symbols, ZRLs and
+    EOBs."""
+    from jpeglibrary_tpu.ops import encode_stage as ref_encode_stage
+    from jpeglibrary_tpu_torch.ops import device_scan
+
+    data = jtt.encode_rgb(smoke.synth_image(20, 96), 20, device="cpu", restart_interval=3)
+    coeffs, geo = device_scan.decode_baseline_device(data, device="cpu")
+    _, const, _ = device_scan.scan_inputs(data)
+    n_blocks = torch.from_numpy(const["mcu_counts"]).long() * const["bpm"]
+    got = smoke.segment_symbols(coeffs, n_blocks)
+    want = []
+    for row, n in zip(coeffs.numpy(), n_blocks.tolist()):
+        dc, ac = ref_encode_stage.dc_ac_symbol_frequencies(row.reshape(-1, 64)[:n])
+        want.append(int(dc.sum() + ac.sum()))
+    assert got.tolist() == want
+    assert sum(want) > 2 * n_blocks.sum()  # AC symbols and EOBs besides the DC ones
+
+
+@pytest.mark.parametrize("buf_bytes,out_bytes,symbols,want_us", [
+    (895_616, 25_165_824, 1_452_281, 7.7835),   # a 2048x2048 image at ri 128
+    (1_019_904, 25_165_824, 1_452_281, 7.8206),  # at ri 4
+])
+def test_k3_bound(smoke, buf_bytes, out_bytes, symbols, want_us):
+    """The segments and six tables in, the output written once."""
+    ms, by = smoke.k3_bound(buf_bytes, out_bytes, 6, symbols)
+    assert by == "bytes"
+    assert abs(ms * 1e3 - want_us) < 1e-3, ms * 1e3
+
+
+def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
+    """The device-scan and full-step phases run end to end on the CPU at a
+    small size with the timers stubbed: every check holds but the launch
+    counts, which only the card can meet (the CPU takes the plain
+    versions)."""
+    failed = []
+    monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
+    monkeypatch.setattr(smoke, "SIZE", 32)
+    monkeypatch.setattr(smoke, "FLUSH_BYTES", 64)
+    monkeypatch.setattr(smoke, "RESTART_INTERVALS", (2, 1))
+    monkeypatch.setattr(smoke, "PLAIN_RIS", (2, 1))
+    monkeypatch.setattr(smoke, "CORRUPT_BYTES", 100)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    no_trace = types.SimpleNamespace(key_averages=lambda: [])  # CPU torch traces no CUDA
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: contextlib.nullcontext(no_trace))
+    stub = lambda *fns, **kw: [0.5 for fn in fns if fn() is not None]
+    monkeypatch.setattr(smoke, "kernel_ms", stub)
+    monkeypatch.setattr(smoke, "device_ms", stub)
+    monkeypatch.setattr(smoke, "wall_ms", lambda fn, **kw: stub(fn)[0])
+    sources = [smoke.synth_image(s, 32) for s in range(2)]
+    datas = [smoke.encode_420(rgb, 75) for rgb in sources]
+    scan = smoke.phase_device_scan(sources, datas, torch.device("cpu"))
+    step = smoke.phase_full_step(smoke.step_inputs(datas), torch.device("cpu"))
+    assert sorted(scan) == [0, 1, 2]
+    assert [r["name"] for r in step.values()] == ["dequantize_idct_shift[full_step]",
+                                                  "fdct_quantize[full_step]"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert scan[0]["plain_ms"] is None and scan[0]["max_abs_err"] is None  # no plain run
+    for rec in [scan[1], scan[2], *step.values()]:
+        assert rec["max_abs_err"] == 0 and rec["plain_ms"] > 0
+    for rec in [*scan.values(), *step.values()]:
+        assert set(rec) == keys and rec["launches"] == 0 and rec["bound_ms"] > 0
+        assert (ROOT / rec["source"]).is_file()
+    assert failed == [(2, "K3 launches", 0), (1, "K3 launches", 0), (0, "K3 launches", 0),
+                      ("full_step launches", 0, 0)]
+
+
+@pytest.mark.parametrize("recorded,want_ms", [
+    # records per window (2 kernels a call, 5 calls) in the order they come
+    ([10, 10, 10, 10, 10], 1.0),
+    ([10, 0, 4, 10, 10, 10, 10], 1.0),  # windows the profiler cut short are timed again
+    ([0, 0, 0, 0, 0, 10, 0, 10, 10, 10, 10], 1.0),
+])
+def test_kernel_ms_times_only_full_windows(smoke, monkeypatch, recorded, want_ms):
+    """kernel_ms holds each window to the most records any of its windows
+    held and times short ones again: a window that lost records (CUPTI
+    drops some on the card) does not pull the mean down."""
+    feed = iter(recorded)
+    calls = []
+
+    def profile(**kw):
+        n = next(feed)
+        rows = [types.SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, key="k2",
+                                      count=n, self_device_time_total=n * 500.0),
+                types.SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA,
+                                      key="Memset (Device)", count=5,
+                                      self_device_time_total=1e6)]
+        return contextlib.nullcontext(types.SimpleNamespace(key_averages=lambda: rows))
+
+    monkeypatch.setattr(torch.profiler, "profile", profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    (ms,) = smoke.kernel_ms(lambda: calls.append(1), runs=25, rounds=5)
+    assert ms == pytest.approx(want_ms)
+    assert len(calls) == 1 + 5 * len(recorded)  # the warm-up call, then 5 a window
+    assert next(feed, None) is None
+
+
+def test_kernel_ms_raises_when_nothing_is_recorded(smoke, monkeypatch):
+    empty = types.SimpleNamespace(key_averages=lambda: [])
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: contextlib.nullcontext(empty))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        smoke.kernel_ms(lambda: None, runs=10, rounds=5, retries=3)

@@ -67,6 +67,15 @@ def test_cpu_slice_loads_neither_jax_nor_pil(tmp_path):
         "assert jtt.decode_region(data, 8, 8, 16, 16).shape == (16, 16, 3)\n"
         "assert jtt.decode(jtt.transform(data, 'rot90')).width == 48\n"
         "assert len(jtt.optimize(data)) < len(data)\n"
+        "from jpeglibrary_tpu_torch.ops import device_scan\n"
+        "ri2 = jtt.encode_rgb(rgb, 75, device='cpu', restart_interval=2)\n"
+        "coeffs, geo = device_scan.decode_baseline_device(ri2, device='cpu')\n"
+        "assert tuple(coeffs.shape) == (6, 2 * 6 * 64)\n"
+        "from jpeglibrary_tpu_torch.parallel import full_step\n"
+        "y, c = np.zeros((1, 4, 4, 64), np.int16), np.zeros((1, 2, 2, 64), np.int16)\n"
+        "q = np.ones(64, np.int32)\n"
+        "out, requant, hists = full_step(y, c, c, q, q, device='cpu')\n"
+        "assert tuple(out.shape) == (1, 32, 32, 3) and int(hists[0].sum()) == 16\n"
         "print(sorted(m for m in ('jax', 'jaxlib', 'PIL', 'jpeglibrary_tpu')\n"
         "             if sys.modules.get(m) is not None))\n"
     )
