@@ -8,8 +8,8 @@ JPEGs through ``decode_stream_rgb(..., device="cuda")``, image by image
 and in groups; the batch decode ``decode_batch_rgb``; the v1 wires; the
 thumbnail decode at 1/2, 1/4 and 1/8; the device encode, the same 8
 images through ``encode_rgb(..., device="cuda")``; the device entropy
-decode ``decode_baseline_device``; and the batch step ``full_step``. In
-order:
+decode ``decode_baseline_device``; the batch step ``full_step``; and the
+mesh layer in spawned ranks. In order:
 
 1. environment: the card, its power limit, torch, CUDA, nvcc, triton;
 2. build: the CUDA kernels (nvcc, sm_90a) and the native scanner (g++);
@@ -105,7 +105,25 @@ order:
    the host gather of its own requantised blocks (and to the plain step's
    where the requantised blocks are equal); the step's time; its K1 and
    K2 calls on the luma against their plain versions and ``torch.matmul``
-   in CUDA events, L2 flushed.
+   in CUDA events, L2 flushed;
+16. mesh: the mesh layer (``parallel/sharding.py``, ``parallel/distributed.py``
+   over ``torch.distributed``) in ranks spawned from here after the build,
+   each rank holding each path to its single-device counterpart on the card
+   bit for bit, with its K1 and K2 launches counted around each path
+   (``mesh_rank``). World 1, NCCL, mesh (1, 1): ``make_sharded_full_step``
+   on the step's inputs (3 K1, 3 K2), ``decode_rgb_sharded`` of one image
+   through ``assemble_stripes`` (3 K1), ``decode_batch_rgb(mesh=)`` and
+   ``decode_batch_rgb_global`` of the 8 images, ``mesh_symbol_frequencies``
+   against the host gather and an ``optimize_coding`` encode with the mesh
+   (the same bytes), with the host-clock times of the step, the stripe
+   decode and the global batch beside their single-device counterparts.
+   World 2, gloo, both ranks on cuda:0 (NCCL takes one rank per card):
+   the step over meshes (2, 1) and (1, 2), where the boundary DC exchange
+   and the histogram all-reduce do real work (3 K1, 3 K2 per rank);
+   ``decode_rgb_sharded`` over 2 stripes on the v2 wire, the v1 wire
+   (``JPX_WIRE=1``), and progressive and lossless 2048x2048 streams written
+   by the host encoders; ``decode_batch_rgb_global`` with 4 images a rank;
+   the step's time, logged only (the two ranks share the card's SMs).
 
 Each phase sets the kernels' launch counts to 0 just before the path it
 drives and reads them just after. Any failure raises and the script
@@ -1755,6 +1773,176 @@ def phase_full_step(inputs, dev):
     return records
 
 
+MESH_TIMEOUT_S = 180  # each world's own limit; a hung rendezvous fails the phase
+MESH_DEVICE = "cuda"  # the ranks' device type ("cpu" only to rehearse the phase's code)
+MESH_RUNS = 5  # host-clock runs of each timed mesh path, after one warm-up
+
+
+def equal_to(got, want, what):
+    """Check ``got`` equal to ``want`` bit for bit (tensors or arrays)."""
+    got = got.cpu().numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = want.cpu().numpy() if torch.is_tensor(want) else np.asarray(want)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          (what, got.shape, got.dtype, want.shape, want.dtype))
+    n_diff = int((got != want).sum())
+    check(n_diff == 0, f"{what}: {n_diff} of {got.size} values differ")
+
+
+def mesh_rank(world, datas):
+    """One rank of the mesh phase, in a world spawned by
+    ``distributed.spawn`` (world 1 over NCCL, world 2 over gloo with both
+    ranks on cuda:0): each mesh path against its single-device
+    counterpart on the same card, bit for bit, with the rank's K1 and K2
+    launches around each; in world 1 the host-clock times of both, in
+    world 2 only the step's (logged only: its two ranks share the card).
+    Returns the rank's log lines and launches."""
+    import torch.distributed as dist
+
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.host.models.lossless import encode_lossless
+    from jpeglibrary_tpu_torch.host.models.progressive_encoder import encode_progressive_rgb
+    from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
+    from jpeglibrary_tpu_torch.models.encoder import rgb_encoder
+    from jpeglibrary_tpu_torch.ops import kernels
+    from jpeglibrary_tpu_torch.parallel import distributed, full_step, sharding
+    from jpeglibrary_tpu_torch.parallel.batch import scan
+    from jpeglibrary_tpu_torch.parallel.collectives import full_tensor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, size = dist.get_rank(), dist.get_world_size()
+    data_mesh = sharding.make_mesh(size, stripe=1, device_type=MESH_DEVICE)
+    dev = sharding.mesh_device(data_mesh)
+    lines, launches = [], {}
+
+    def note(text):
+        lines.append(f"mesh: world {world} ({dist.get_backend()}), rank {rank}: {text}")
+
+    def counted(key, fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[key] = (kernels.dequantize_idct_shift.launches, kernels.fdct_quantize.launches)
+        return out
+
+    def host_ms(fn):
+        fn()
+        return statistics.median(timed(fn)[1] * 1e3 for _ in range(MESH_RUNS))
+
+    (y, cb, cr), (q_luma, q_chroma) = step_inputs(datas)
+    args = [torch.from_numpy(a).to(dev) for a in (y, cb, cr, q_luma, q_chroma)]
+    want = full_step(*args, device=dev)
+    meshes = [(1, 1)] if world == 1 else [(2, 1), (2, 2)]
+    for n, stripe in meshes:
+        mesh = sharding.make_mesh(n, stripe=stripe, device_type=MESH_DEVICE)
+        step = sharding.make_sharded_full_step(mesh)
+        got = counted(f"step {n}x{stripe}", lambda: step(*args))
+        for name, g, w in zip(("rgb", "requant_y", "hists"), got, want):
+            equal_to(full_tensor(g), w, f"sharded step {n}x{stripe} {name}")
+        k1, k2 = launches[f"step {n}x{stripe}"]
+        check((k1, k2) == (3, 3), ("sharded step launches", n, stripe, k1, k2))
+        note(f"make_sharded_full_step on mesh {dict(zip(sharding.MESH_DIMS, mesh.shape))}, "
+             f"Y {tuple(y.shape)}, local RGB {tuple(got[0].to_local().shape)}: RGB, requantised "
+             f"Y and the 4 histograms equal full_step's bit for bit; K1 {k1}, K2 {k2} launches")
+        sharded_ms, single_ms = host_ms(lambda: step(*args)), host_ms(
+            lambda: full_step(*args, device=dev))
+        note(f"sharded step {sharded_ms:.6f} ms, full_step {single_ms:.6f} ms per step of "
+             f"{y.shape[0]} images (host clock, synchronised, median of {MESH_RUNS})")
+    mesh = sharding.make_mesh(size, stripe=size, device_type=MESH_DEVICE)  # stripes on all
+
+    def single_rgb(data, sparse=True):
+        return jtt.to_rgb8_device(scan(data), device=dev, sparse=sparse)
+
+    def sharded_rgb(data):
+        return sharding.assemble_stripes(*sharding.decode_rgb_sharded(data, mesh))
+
+    sources = {"v2": (datas[0], False)}
+    if world == 2:
+        sources["v1"] = (datas[0], True)
+        start = time.perf_counter()
+        img = synth_image(0, SIZE)
+        sources["progressive"] = (encode_progressive_rgb(img, 75), False)
+        sources["lossless"] = (encode_lossless(img, predictor=1), False)
+        note(f"progressive and lossless {SIZE}x{SIZE} sources written by the host encoders in "
+             f"{time.perf_counter() - start:.3f} s")
+    for mode, (data, v1) in sources.items():
+        if v1:
+            os.environ["JPX_WIRE"] = "1"
+        try:
+            got = counted(f"stripes {mode}", lambda: sharded_rgb(data))
+            if mode == "lossless":
+                res = scan(data)
+                ref = np.moveaxis(res.to_rgb8(), -1, 0)
+            else:
+                ref = single_rgb(data, sparse=mode != "progressive")
+            equal_to(got, ref, f"decode_rgb_sharded {mode}")
+            k1 = launches[f"stripes {mode}"][0]
+            check(k1 == (0 if mode == "lossless" else 3), ("stripe K1 launches", mode, k1))
+            note(f"decode_rgb_sharded {mode} {SIZE}x{SIZE} over {size} stripes: equal to the "
+                 f"single-device decode bit for bit; K1 {k1} launches")
+            if world == 1:
+                note(f"decode_rgb_sharded {host_ms(lambda: sharded_rgb(data)):.6f} ms, scan + "
+                     f"to_rgb8_device {host_ms(lambda: single_rgb(data)):.6f} ms (host clock, "
+                     f"median of {MESH_RUNS})")
+        finally:
+            os.environ.pop("JPX_WIRE", None)
+
+    batch = jtt.decode_batch_rgb(datas, device=dev)
+    if world == 1:
+        got = counted("batch mesh", lambda: jtt.decode_batch_rgb(datas, mesh=data_mesh))
+        for i, (g, w) in enumerate(zip(got, batch)):
+            equal_to(g, w, f"decode_batch_rgb(mesh=) image {i}")
+        check(launches["batch mesh"][0] == 3, ("batch mesh K1 launches", launches["batch mesh"]))
+        note(f"decode_batch_rgb(mesh=) of {len(datas)} images equal to decode_batch_rgb; "
+             f"K1 {launches['batch mesh'][0]} launches")
+    block = distributed.local_batch_block(len(datas))
+    got = counted("global", lambda: distributed.decode_batch_rgb_global(
+        datas, device_type=MESH_DEVICE))
+    for i, g in zip(block, got.to_local()):
+        equal_to(g.permute(1, 2, 0), batch[i], f"decode_batch_rgb_global image {i}")
+    check(launches["global"][0] == 3, ("global batch K1 launches", launches["global"]))
+    note(f"decode_batch_rgb_global of {len(datas)} images, images {block.start}-{block.stop - 1} "
+         f"here: equal to decode_batch_rgb bit for bit; K1 {launches['global'][0]} launches")
+    if world == 1:
+        global_ms = host_ms(lambda: distributed.decode_batch_rgb_global(
+            datas, device_type=MESH_DEVICE))
+        batch_ms = host_ms(lambda: jtt.decode_batch_rgb(datas, device=dev))
+        note(f"decode_batch_rgb_global {global_ms:.6f} ms, decode_batch_rgb {batch_ms:.6f} ms "
+             f"per batch of {len(datas)} (host clock, median of {MESH_RUNS})")
+        res = scan(datas[0])
+        y_plane = res.coefficients[res.geometry.components[0].component_index]
+        blocks = host_encode_stage.mcu_order_blocks(y_plane, 2, 2)
+        got = sharding.mesh_symbol_frequencies(blocks, data_mesh)
+        for g, w in zip(got, host_encode_stage.dc_ac_symbol_frequencies(blocks)):
+            equal_to(g, w, "mesh_symbol_frequencies")
+        note(f"mesh_symbol_frequencies of {len(blocks)} luma blocks equal to the host gather")
+        img = synth_image(0, SIZE)
+        plain = jtt.encode(rgb_encoder(img, 75, optimize_coding=True), device=dev)
+        encoder = rgb_encoder(img, 75, optimize_coding=True)
+        encoder.mesh = data_mesh
+        check(jtt.encode(encoder, device=dev) == plain, "the mesh's encode bytes differ")
+        note(f"optimize_coding encode with the mesh: the same {len(plain)} bytes as without")
+    return {"lines": lines, "launches": launches}
+
+
+def phase_mesh(sl):
+    """The mesh layer on the card: world 1 (NCCL, mesh (1, 1)) and world 2
+    (gloo, both ranks on cuda:0, meshes (2, 1) and (1, 2)), spawned from
+    here after the kernels were built, each rank holding each mesh path to
+    its single-device counterpart bit for bit (``mesh_rank``). A rank's
+    failure fails the phase."""
+    from jpeglibrary_tpu_torch.parallel import distributed
+
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        start = time.perf_counter()
+        ranks = distributed.spawn(mesh_rank, world, world, sl["datas"], backend=backend,
+                                  timeout=MESH_TIMEOUT_S)
+        for r in ranks:
+            for line in r["lines"]:
+                log(line)
+        log(f"mesh: world {world} over {backend}: {time.perf_counter() - start:.3f} s with the "
+            f"spawn; launches (K1, K2) by rank and path: {[r['launches'] for r in ranks]}")
+
+
 def step_inputs(datas):
     """``full_step``'s inputs from the host scans of ``datas`` (same
     geometry and tables): (Y, Cb, Cr) int16 coefficient planes stacked
@@ -1791,6 +1979,7 @@ def main():
     stripe_launches = phase_stripes(sl, dev)
     scan_records = phase_device_scan(sl["sources"], sl["datas"], dev)
     step_records = phase_full_step(step_inputs(sl["datas"]), dev)
+    phase_mesh(sl)
     log(f"K1 launches on the later paths: fancy {3 * N_IMAGES}, u16 {3 * N_IMAGES}, "
         f"stripes {stripe_launches}, full_step {step_records['k1']['launches']}; K2 on the "
         f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}")

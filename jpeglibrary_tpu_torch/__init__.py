@@ -1,5 +1,6 @@
-"""jpeglibrary_tpu_torch — jpeglibrary_tpu in PyTorch on one device, with
-hand-written CUDA kernels for NVIDIA Hopper.
+"""jpeglibrary_tpu_torch — jpeglibrary_tpu in PyTorch, on one device or
+over a mesh of ``torch.distributed`` ranks, with hand-written CUDA kernels
+for NVIDIA Hopper.
 
 The package imports nothing of ``jpeglibrary_tpu``. Its host layers
 (container parsing, the native entropy scanner and emitter, frame
@@ -13,8 +14,10 @@ or fancy upsampling, colour conversion or the 16-bit writer, and the
 batched, streaming and stripe pipelines; for the encode, the K2 pad + box
 subsample + FDCT + quantize kernel (``csrc/fdct_quant.cu``) behind the RGB,
 gray and CMYK/YCCK encoders. Every device entry point takes an explicit
-``device``; CPU tensors run the kernels' plain PyTorch versions, CUDA
-tensors the kernels.
+``device`` (or a mesh, whose ranks each run on their own device); CPU
+tensors run the kernels' plain PyTorch versions, CUDA tensors the
+kernels. ``parallel`` holds the mesh layer, ``graft_entry`` the
+repository's entry points and ``cli`` the five command-line tools.
 
 ``__all__`` holds the JAX package's public names, each the port's device
 form where it has one (``encode_rgb``, ``encode_gray``, ``encode_cmyk``,

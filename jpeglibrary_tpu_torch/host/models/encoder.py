@@ -1,9 +1,10 @@
 """Baseline (SOF0) JPEG encoder.
 
 The port's copy of ``jpeglibrary_tpu/models/encoder.py``, without the
-JAX device branch of ``encode`` (``xp=jnp``) and the mesh statistics:
-here ``encode`` runs on numpy and raises for either. The port's device
-encode is ``jpeglibrary_tpu_torch.models.encoder.encode``.
+JAX device branch of ``encode`` (``xp=jnp``): here ``encode`` runs on
+numpy and raises for it. The port's device encode is
+``jpeglibrary_tpu_torch.models.encoder.encode``. The mesh statistics run
+over the port's mesh (``parallel.sharding.mesh_symbol_frequencies``).
 
 API parity with the reference JpegEncoder
 (yigolden/JpegLibrary/src/JpegLibrary/JpegEncoder.cs:15-997:
@@ -79,8 +80,10 @@ class JpegEncoder:
         #: it makes the output restart-segment-parallel decodable — the
         #: parallel seam this framework's scanners exploit.
         self.restart_interval = 0
-        #: the JAX package's mesh for device-reduced symbol statistics;
-        #: not ported, so encode() raises while it is set.
+        #: optional mesh (jpeglibrary_tpu_torch.parallel.sharding.make_mesh):
+        #: 2-pass symbol statistics then run on the mesh's devices, the
+        #: blocks split over its ``data`` axis and the histograms
+        #: all-reduced (parallel.sharding.mesh_symbol_frequencies).
         self.mesh = None
         #: arithmetic entropy coding (SOF9) instead of Huffman — a
         #: capability beyond the reference encoder (JpegEncoder.cs is
@@ -359,12 +362,17 @@ class JpegEncoder:
     # -- encode --
 
     def encode(self, xp=np) -> bytes:
-        # The JAX device branch (xp=jnp) and the mesh statistics are not
-        # in this copy: the device encode is jpeglibrary_tpu_torch.encode.
+        # The JAX device branch (xp=jnp) is not in this copy: the device
+        # encode is jpeglibrary_tpu_torch.encode.
         if xp is not np:
             raise JpegEncodeError("this host encoder runs on numpy only")
         if self.mesh is not None:
-            raise JpegEncodeError("this host encoder takes no JAX mesh")
+            from ...parallel.sharding import check_mesh
+
+            try:
+                check_mesh(self.mesh)
+            except ValueError as exc:
+                raise JpegEncodeError(str(exc)) from None
         if self._input_stream is not None:
             return self._encode_streaming_dnl()
         if self._input_rgb_reader is not None:
@@ -607,7 +615,12 @@ class JpegEncoder:
         if self.arithmetic:
             pass  # adaptive QM coder: no tables
         elif optimize:
-            gather = encode_stage.dc_ac_symbol_frequencies
+            if self.mesh is not None:
+                from ...parallel.sharding import mesh_symbol_frequencies
+
+                gather = lambda blocks: mesh_symbol_frequencies(blocks, self.mesh)
+            else:
+                gather = encode_stage.dc_ac_symbol_frequencies
             builders: Dict[tuple, HuffmanTableBuilder] = {}
             for ci, (comp, blocks) in enumerate(
                 zip(self._components, comp_blocks)

@@ -79,17 +79,14 @@ def sample_planes(encoder: JpegEncoder) -> List[np.ndarray]:
     """The encoder's sample planes as the device stage takes them (uint8
     at 8 bits, int32 at 12): its input planes, or its RGB or ink input
     converted on the host. Raises for what the device branch does not
-    take: the inputs of :data:`HOST_INPUTS`, differential frames (which
-    take coefficient planes), and a JAX mesh (multi-device is not
-    ported)."""
+    take: the inputs of :data:`HOST_INPUTS` and differential frames
+    (which take coefficient planes)."""
     if takes_host_path(encoder):
         raise JpegEncodeError("the device stage takes sample planes, RGB or ink")
     if encoder.differential:
         raise JpegEncodeError(
             "differential frames take pre-quantized coefficient planes "
             "(set_coefficient_planes), not samples")
-    if encoder.mesh is not None:
-        raise JpegEncodeError("the device encode does not take a JAX mesh")
     if encoder.sample_precision not in (8, 12):
         raise JpegEncodeError(
             f"the device encode takes 8- and 12-bit samples, not {encoder.sample_precision}"
@@ -147,7 +144,9 @@ def encode(encoder: JpegEncoder, *, device) -> bytes:
     take the port's host encoder, which launches no kernel: the JAX
     package encodes them on the host whatever ``xp`` is, and so gives the
     same bytes. The encoder itself is left as it was (a shallow copy
-    runs). A JAX mesh raises on either path."""
+    runs). With ``encoder.mesh`` set, the host half's optimize-coding
+    statistics run over the mesh (``mesh_symbol_frequencies``), giving
+    the same bytes."""
     if takes_host_path(encoder):
         return copy.copy(encoder).encode()
     return emit(encoder, coefficient_planes(encoder, device=device))

@@ -125,16 +125,20 @@ def _bit_count_device(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def symbol_histograms_device(blocks: torch.Tensor,
-                             n_valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def symbol_histograms_device(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
+                             prev_dc: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """DC and AC Huffman symbol histograms of int [B, N, 64] zig-zag
     blocks in MCU walk order, each batch row one component instance with
     its own DC predictor chain; ``n_valid`` [B] counts the real blocks of
     each row (the rest are padding and count nothing). Returns
     (dc_freq [256], ac_freq [256]) int32, summed over the batch, on the
-    blocks' device: the DC categories of successive differences (the
-    first from 0), the AC (run, size) symbols, a ZRL per 16 zeros of a
-    run and an EOB per block whose last coefficient is zero."""
+    blocks' device: the DC categories of successive differences, the AC
+    (run, size) symbols, a ZRL per 16 zeros of a run and an EOB per block
+    whose last coefficient is zero.
+
+    A row's first DC differs from 0, or from ``prev_dc`` [B] where given:
+    the DC before the row in its chain, when the row is a shard of a
+    longer chain (the mesh's boundary exchange)."""
     b, n, _ = blocks.shape
     dev = blocks.device
     i32 = torch.int32
@@ -146,7 +150,9 @@ def symbol_histograms_device(blocks: torch.Tensor,
         valid = (torch.arange(n, device=dev)[None, :] < n_valid[:, None]).to(i32)
 
     dc = blocks[:, :, 0]
-    prev = torch.cat([torch.zeros((b, 1), dtype=i32, device=dev), dc[:, :-1]], dim=1)
+    first = (torch.zeros((b, 1), dtype=i32, device=dev) if prev_dc is None
+             else torch.as_tensor(prev_dc, device=dev).to(i32).reshape(b, 1))
+    prev = torch.cat([first, dc[:, :-1]], dim=1)
     dc_syms = _bit_count_device((dc - prev).abs())
     dc_freq = torch.zeros(256, dtype=i32, device=dev)
     dc_freq.index_add_(0, dc_syms.reshape(-1), valid.reshape(-1))

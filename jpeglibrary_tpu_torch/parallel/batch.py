@@ -34,6 +34,8 @@ from ..models.decoder import delta_payload, scale_n_of, to_rgb8_device
 from ..models.encoder import encode_rgb
 from ..ops import _build
 from ..ops.pipeline import transform_delta, transform_mcu, transform_mcu2
+from . import collectives
+from .sharding import device_or_mesh
 
 
 def scan(data: bytes) -> DecodeResult:
@@ -75,7 +77,7 @@ def _host_rgb(res: DecodeResult, scale_n: int) -> np.ndarray:
     return rgb
 
 
-def decode_batch_rgb(datas: Sequence[bytes], *, device, mesh=None,
+def decode_batch_rgb(datas: Sequence[bytes], *, device=None, mesh=None,
                      max_workers: Optional[int] = None,
                      scale: float = 1.0) -> List[np.ndarray]:
     """Decode a batch of JPEGs to ``[H', W', 3]`` uint8 RGB numpy arrays,
@@ -87,10 +89,14 @@ def decode_batch_rgb(datas: Sequence[bytes], *, device, mesh=None,
     payloads padded to one width; each group comes back in one download.
     Lossless images and RGB-coded, CMYK or YCCK streams take the host
     writers. ``scale`` in {1, 1/2, 1/4, 1/8} runs the reduced IDCT (host
-    images are subsampled or scaled on the host). A ``mesh`` is not
-    ported yet and raises."""
-    if mesh is not None:
-        raise ValueError("decode_batch_rgb over a mesh is not ported to PyTorch yet")
+    images are subsampled or scaled on the host).
+
+    With a ``mesh`` (``sharding.make_mesh``; every rank calls with the same
+    ``datas``) each group's stacked wire splits over ``data``, padded to a
+    multiple of its size, each rank transforms its share on its device,
+    and a gather gives every rank the whole list. Exactly one of ``device``
+    and ``mesh`` is given."""
+    device = device_or_mesh(device, mesh, "decode_batch_rgb")
     scale_n = scale_n_of(scale)
     _build.load_scanner()
     results = scan_images(datas, max_workers=max_workers)
@@ -119,11 +125,33 @@ def decode_batch_rgb(datas: Sequence[bytes], *, device, mesh=None,
                 stacked[j, : p.shape[0]] = p  # (0, 0) padding adds zero
             wire = transform_delta, stacked, _stacked_quants(batch, geometry)
         transform, stacked, quants = wire
-        rgb = transform(stacked, quants, geometry, device, scale_n=scale_n)
+        if mesh is None:
+            rgb = transform(stacked, quants, geometry, device, scale_n=scale_n)
+        else:
+            rgb = _transform_over_data(transform, stacked, quants, geometry, mesh, device,
+                                       scale_n)
         rgb = rgb.permute(0, 2, 3, 1).contiguous().cpu().numpy()  # planar -> [B, H, W, 3]
         for j, i in enumerate(on_device):
             out[i] = rgb[j]
     return out
+
+
+def _transform_over_data(transform, stacked: np.ndarray, quants: np.ndarray, geometry, mesh,
+                         device, scale_n: int) -> torch.Tensor:
+    """One group's stacked transform split over the mesh's ``data`` axis:
+    the batch is zero-padded to a multiple of its size (a zero wire and
+    zero tables decode to a flat block), each rank transforms its share,
+    and the shares are gathered back in batch order on every rank."""
+    n_data, d = mesh["data"].size(), mesh.get_local_rank("data")
+    b = stacked.shape[0]
+    per = -(-b // n_data)
+    pad = n_data * per - b
+    if pad:
+        stacked = np.concatenate([stacked, np.zeros((pad,) + stacked.shape[1:], stacked.dtype)])
+        quants = np.concatenate([quants, np.zeros((pad,) + quants.shape[1:], quants.dtype)])
+    mine = slice(d * per, (d + 1) * per)
+    local = transform(stacked[mine], quants[mine], geometry, device, scale_n=scale_n)
+    return torch.cat(collectives.all_gather(local, mesh.get_group("data")))[:b]
 
 
 def decode_stream_rgb(datas, *, device, depth: int = 4, scan_workers: int = 2,

@@ -301,6 +301,30 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
                       ("full_step launches", 0, 0)]
 
 
+@pytest.mark.parametrize("world", [1, 2])
+def test_mesh_phase_rehearses_on_cpu_ranks(smoke, world):
+    """The mesh phase's ranks (``mesh_rank``) run end to end in gloo CPU
+    ranks at 64 x 64: every check holds but the launch counts, which only
+    the card can meet."""
+    import torch_mesh_workers
+
+    from jpeglibrary_tpu_torch.parallel import distributed
+
+    datas = [smoke.encode_420(smoke.synth_image(s, 64), 75) for s in range(2)]
+    ranks = distributed.spawn(torch_mesh_workers.chip_smoke_mesh, world, world, datas, 64,
+                              backend="gloo", timeout=120)
+    steps = [(1, 1)] if world == 1 else [(2, 1), (2, 2)]
+    modes = ["v2"] if world == 1 else ["v2", "v1", "progressive"]
+    for r in ranks:
+        batch = [("batch mesh K1 launches", (0, 0))] if world == 1 else []
+        assert r["failed"] == ([("sharded step launches", n, s, 0, 0) for n, s in steps]
+                               + [("stripe K1 launches", m, 0) for m in modes]
+                               + batch + [("global batch K1 launches", (0, 0))])
+        assert all(v == (0, 0) for v in r["launches"].values())
+        assert sum("bit for bit" in line for line in r["lines"]) == len(steps) + len(modes) + (
+            world == 2) + 1
+
+
 @pytest.mark.parametrize("recorded,want_ms", [
     # records per window (2 kernels a call, 5 calls) in the order they come
     ([10, 10, 10, 10, 10], 1.0),

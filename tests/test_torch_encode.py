@@ -280,8 +280,9 @@ def _ink_encoder():
 
 def _unported(kind):
     """An encoder whose input the device encode refuses, as the JAX
-    package's ``encode(xp=jnp)`` does or, for the mesh, as only the port
-    does (multi-device is not ported)."""
+    package's ``encode(xp=jnp)`` does or, for a mesh that is no
+    DeviceMesh of ``sharding.make_mesh``'s kind, as only the port does
+    (a JAX mesh would fail there at its first use)."""
     rgb = _gradient_noise(16, 16, seed=1)
     encoder = port_encoder._configure_rgb_encoder(75, "420")
     if kind == "mesh":

@@ -209,6 +209,8 @@ def test_batched_transform_rgb_matches_jax():
 
 
 def test_mesh_raises():
+    """A mesh that is no DeviceMesh of ``make_mesh``'s kind raises (the
+    mesh itself is held in tests/test_torch_mesh.py)."""
     y, cb, cr, ql, qc = _example_args()
     with pytest.raises(ValueError, match="mesh"):
         port_parallel.batched_transform_rgb([(y[0], cb[0], cr[0])], (ql, qc, qc), None,

@@ -76,6 +76,15 @@ def test_cpu_slice_loads_neither_jax_nor_pil(tmp_path):
         "q = np.ones(64, np.int32)\n"
         "out, requant, hists = full_step(y, c, c, q, q, device='cpu')\n"
         "assert tuple(out.shape) == (1, 32, 32, 3) and int(hists[0].sum()) == 16\n"
+        "from jpeglibrary_tpu_torch import graft_entry\n"
+        "from jpeglibrary_tpu_torch.cli import debugdump, decode, encode, optimize, transcode\n"
+        "from jpeglibrary_tpu_torch.parallel import collectives, distributed, sharding\n"
+        "step, args = graft_entry.entry(device='cpu')\n"
+        "assert int(step(*args)[2][0].sum()) == args[0].numel() // 64\n"
+        "assert distributed.local_batch_block(4) == range(4)\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert optimize.main([str(d / 'base.jpg'), str(d / 'opt.jpg')]) == 0\n"
         "print(sorted(m for m in ('jax', 'jaxlib', 'PIL', 'jpeglibrary_tpu')\n"
         "             if sys.modules.get(m) is not None))\n"
     )
@@ -122,4 +131,32 @@ def test_port_module_imports_nothing_of_the_jax_package(path):
     pattern = re.compile(r"^\s*(import|from)\s+jpeglibrary_tpu(?!_torch)\b")
     hits = [f"{path}:{i}" for i, line in enumerate((ROOT / path).read_text().splitlines(), 1)
             if pattern.match(line)]
+    assert not hits, hits
+
+
+MESH_MODULES = ["jpeglibrary_tpu_torch.parallel.collectives",
+                "jpeglibrary_tpu_torch.parallel.distributed",
+                "jpeglibrary_tpu_torch.parallel.sharding", "jpeglibrary_tpu_torch.graft_entry",
+                *(f"jpeglibrary_tpu_torch.cli.{name}"
+                  for name in ("decode", "encode", "optimize", "transcode", "debugdump"))]
+
+
+def test_spawned_ranks_load_neither_jax_nor_the_jax_package():
+    """A rank spawned by ``distributed.spawn`` (from this process, which
+    has JAX loaded) imports the mesh modules, the CLIs and the tests' rank
+    functions (``tests/torch_mesh_workers.py``) and finds no JAX module
+    and nothing of the JAX package loaded."""
+    import torch_mesh_workers
+
+    from jpeglibrary_tpu_torch.parallel import distributed
+
+    loaded = distributed.spawn(torch_mesh_workers.imported_modules, 2, MESH_MODULES,
+                               backend="gloo", timeout=120)
+    assert loaded == [[], []]
+
+
+def test_rank_functions_import_nothing_of_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|jpeglibrary_tpu(?!_torch))\b")
+    text = (ROOT / "tests" / "torch_mesh_workers.py").read_text().splitlines()
+    hits = [i for i, line in enumerate(text, 1) if pattern.match(line)]
     assert not hits, hits
