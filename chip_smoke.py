@@ -8,8 +8,9 @@ JPEGs through ``decode_stream_rgb(..., device="cuda")``, image by image
 and in groups; the batch decode ``decode_batch_rgb``; the v1 wires; the
 thumbnail decode at 1/2, 1/4 and 1/8; the device encode, the same 8
 images through ``encode_rgb(..., device="cuda")``; the device entropy
-decode ``decode_baseline_device``; the batch step ``full_step``; and the
-mesh layer in spawned ranks. In order:
+decode ``decode_baseline_device``; the batch step ``full_step``; the
+bit-exact decode ``jtt.decode(data, xp=device).planes``; and the mesh
+layer in spawned ranks. In order:
 
 1. environment: the card, its power limit, torch, CUDA, nvcc, triton;
 2. build: the CUDA kernels (nvcc, sm_90a) and the native scanner (g++);
@@ -123,13 +124,25 @@ mesh layer in spawned ranks. In order:
    ``decode_rgb_sharded`` over 2 stripes on the v2 wire, the v1 wire
    (``JPX_WIRE=1``), and progressive and lossless 2048x2048 streams written
    by the host encoders; ``decode_batch_rgb_global`` with 4 images a rank;
-   the step's time, logged only (the two ranks share the card's SMs).
+   the step's time, logged only (the two ranks share the card's SMs);
+17. golden: the bit-exact decode, ``jtt.decode(data,
+   xp=device).planes`` (K4, ``csrc/butterfly_idct.cu``, once per component,
+   no K1) and ``jtt.decode_region(..., xp=device)`` at two rectangles, on
+   the slice's 8 streams, a 12-bit grayscale stream from the host encoder,
+   a progressive, an arithmetic and a restart-interval stream, each equal
+   to the host numpy path with 0 values differing; K4 equal to its plain
+   version (``dct.idct8x8`` in torch ops) on the Y plane of a slice image,
+   random int16 and int32 planes and 12-bit planes (quant entries up to
+   65,535); K4 timed as in 3 beside its plain version, one ``torch.matmul``
+   of the folded IDCT matrix (the same transform, not bit-exact) and its
+   bound; the planes' host-clock time beside the host numpy planes'.
 
 Each phase sets the kernels' launch counts to 0 just before the path it
 drives and reads them just after. Any failure raises and the script
 exits non-zero. The line before the last is a JSON record of the
 kernels (K1, one entry per K1 variant, K2, one entry per K2 box of 9,
-K3 at each restart interval, and the K1 and K2 calls of ``full_step``: launches on the main paths, kernel
+K3 at each restart interval, the K1 and K2 calls of ``full_step``, and
+K4: launches on the main paths, kernel
 time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
@@ -154,6 +167,13 @@ K2_SOURCE = "jpeglibrary_tpu_torch/csrc/fdct_quant.cu"
 K2_REPLACES = "jpeglibrary_tpu/ops/pallas_kernels.py:99"
 K3_SOURCE = "jpeglibrary_tpu_torch/csrc/huffman_scan.cu"
 K3_REPLACES = "jpeglibrary_tpu/ops/device_scan.py:121"  # _compiled_decoder: XLA, not Pallas
+K4_SOURCE = "jpeglibrary_tpu_torch/csrc/butterfly_idct.cu"
+K4_REPLACES = "jpeglibrary_tpu/ops/dct.py:167"  # idct8x8, the XLA butterfly of decode(xp=jnp)
+# K4's float operations per block: 16 one-dimensional passes of 12
+# multiplies, 25 adds and 7 subtracts, and per sample the dequantize
+# multiply, the conversion, the 1/8 scale, the rounding and the level shift.
+K4_OPS_PER_BLOCK = 16 * 44 + 64 * 5
+GOLDEN_RECTS = ((136, 264, 640, 480), (1, 1031, 2047, 17))  # (x, y, w, h) regions
 # The device scan's restart intervals, in MCUs per segment: one MCU row of a
 # 2048x2048 4:2:0 image (128 segments), 16 (1,024) and 4 (4,096); and a
 # stream without restart markers (one segment) besides. The plain version
@@ -328,6 +348,7 @@ def reset_counts():
     kernels.fdct_quantize.launches = 0
     kernels.fdct_quantize.launches_by_box.clear()
     kernels.huffman_scan.launches = 0
+    kernels.butterfly_idct_shift.launches = 0
 
 
 def check_close(got, want, what, share=1e-4):
@@ -1943,6 +1964,185 @@ def phase_mesh(sl):
             f"spawn; launches (K1, K2) by rank and path: {[r['launches'] for r in ranks]}")
 
 
+def k4_bound(n_blocks, itemsize):
+    """K4's bound: the coefficients and the quant table in, the int32 plane
+    out; K4_OPS_PER_BLOCK float operations per block."""
+    n_bytes = n_blocks * 64 * itemsize + 64 * 4 + n_blocks * 64 * 4
+    return bound(n_bytes, 0, n_blocks * K4_OPS_PER_BLOCK)
+
+
+def k4_check(label, coeffs, quant, ls):
+    """K4 against its plain version on the card, bit for bit: 0 samples may
+    differ. Returns the plain plane."""
+    from jpeglibrary_tpu_torch.ops import decode_stage, kernels
+
+    got = kernels.butterfly_idct_shift(coeffs, quant, ls)
+    want = decode_stage.blocks_to_plane(
+        decode_stage.dequantize_idct_shift_exact(coeffs, quant, ls))
+    torch.cuda.synchronize()
+    hb, wb = coeffs.shape[0], coeffs.shape[1]
+    check(got.dtype == torch.int32 and tuple(got.shape) == tuple(want.shape) == (hb * 8, wb * 8),
+          (label, got.dtype, tuple(got.shape)))
+    n_diff = int((got != want).sum())
+    log(f"golden: K4 vs plain, {label} ({hb * wb} blocks, {coeffs.dtype}, level shift {ls}): "
+        f"{n_diff}/{got.numel()} samples differ")
+    check(n_diff == 0, (label, n_diff))
+    return want
+
+
+def gray12_stream(plane, dev):
+    """A 12-bit grayscale stream of ``plane`` (int32 samples) with optimized
+    Huffman tables, through the host encoder's emission
+    (``sample_precision = 12``), its transform on the card."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.host.syntax.quantization import (
+        scale_by_quality,
+        standard_luminance_table,
+    )
+
+    encoder = jtt.JpegEncoder()
+    encoder.sample_precision = 12
+    encoder.set_quantization_table(scale_by_quality(standard_luminance_table(0), 90))
+    encoder.set_huffman_table(True, 0)
+    encoder.set_huffman_table(False, 0)
+    encoder.add_component(1, 0, 0, 0, 1, 1)
+    encoder.set_input([plane])
+    return jtt.encode(encoder, device=dev)
+
+
+def phase_golden(sl, dev):
+    """The bit-exact decode on the card: ``jtt.decode(data, xp=dev).planes``
+    (K4 once per component) and ``jtt.decode_region(..., xp=dev)`` against
+    the host numpy path, 0 values differing, on the slice's 8 streams, a
+    12-bit grayscale stream, a progressive one and an arithmetic one; K4
+    against its plain version on the Y plane of a slice image, random
+    int16 and int32 planes and 12-bit planes; K4 timed against its plain
+    version, one ``torch.matmul`` of the folded IDCT matrix and its bound;
+    the planes' host-clock time beside the host numpy planes'. Returns
+    K4's record."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.host.models.progressive_encoder import encode_progressive_rgb
+    from jpeglibrary_tpu_torch.models.decoder import quant_tables
+    from jpeglibrary_tpu_torch.ops import decode_stage, kernels
+
+    start = time.perf_counter()
+    src = sl["sources"][0]
+    gray12 = src[..., 1].astype(np.int32) * 16 + np.random.default_rng(12).integers(
+        0, 16, src.shape[:2]).astype(np.int32)
+    extra = {"12-bit gray": (gray12_stream(gray12, dev), 1),
+             "progressive": (encode_progressive_rgb(src, 75), 3),
+             "arithmetic": (jtt.encode_rgb(src, 75, arithmetic=True, device=dev), 3),
+             "restart 16": (jtt.encode_rgb(src, 75, restart_interval=16, device=dev), 3)}
+    log(f"golden: streams written in {time.perf_counter() - start:.3f} s: "
+        + ", ".join(f"{k} {len(d)} bytes" for k, (d, _) in extra.items()))
+    jobs = [(f"slice image {i}", d, 3) for i, d in enumerate(sl["datas"])]
+    jobs += [(k, d, n) for k, (d, n) in extra.items()]
+
+    host_s, card_s, n_values, launches = [], [], 0, 0
+    for label, data, n_comps in jobs:
+        t0 = time.perf_counter()
+        want = jtt.decode(data).planes
+        t1 = time.perf_counter()
+        reset_counts()
+        res = jtt.decode(data, xp=dev)
+        got = res.planes
+        t2 = time.perf_counter()
+        k4 = kernels.butterfly_idct_shift.launches
+        check(k4 == n_comps and kernels.dequantize_idct_shift.launches == 0,
+              (label, "K4 launches", k4, "K1 launches", kernels.dequantize_idct_shift.launches))
+        check(sorted(got) == sorted(want), (label, sorted(got), sorted(want)))
+        n_diff = 0
+        for k in want:
+            check(got[k].dtype == want[k].dtype == np.int32 and got[k].shape == want[k].shape,
+                  (label, k, got[k].dtype, got[k].shape))
+            n_diff += int((got[k] != want[k]).sum())
+            n_values += got[k].size
+        log(f"golden: decode(xp={dev}).planes of {label} ({res.width}x{res.height}, "
+            f"{res.precision}-bit): {n_diff} values differ from the host numpy planes; K4 "
+            f"launches {k4}; host clock {(t2 - t1) * 1e3:.6f} ms vs numpy {(t1 - t0) * 1e3:.6f} ms "
+            "(each with its scan)")
+        check(n_diff == 0, (label, n_diff))
+        if label.startswith("slice"):
+            launches += k4
+            host_s.append(t1 - t0)
+            card_s.append(t2 - t1)
+    log(f"golden: {len(jobs)} streams, {n_values} plane values, all equal to the host numpy "
+        f"path; K4 launches on the 8 slice images {launches} (3 per 4:2:0 image); decode + "
+        f"planes median {statistics.median(card_s) * 1e3:.6f} ms on the card, "
+        f"{statistics.median(host_s) * 1e3:.6f} ms on numpy (host clock, first call each)")
+
+    res = jtt.decode(sl["datas"][0])
+    t_scan = warm_median_s(lambda: jtt.decode(sl["datas"][0]))
+    t_card = warm_median_s(lambda: jtt.decode(sl["datas"][0], xp=dev).planes)
+    t_host = warm_median_s(lambda: jtt.decode(sl["datas"][0]).planes)
+    log(f"golden: slice image 0, median of {STREAM_RUNS} warm runs (host clock): scan "
+        f"{t_scan * 1e3:.6f} ms; scan + planes on the card {t_card * 1e3:.6f} ms, on numpy "
+        f"{t_host * 1e3:.6f} ms; planes alone {(t_card - t_scan) * 1e3:.6f} ms vs "
+        f"{(t_host - t_scan) * 1e3:.6f} ms")
+
+    for x, y, w, h in GOLDEN_RECTS:
+        for label, data in (("slice image 0", sl["datas"][0]),
+                            *((k, d) for k, (d, _) in extra.items())):
+            got = jtt.decode_region(data, x, y, w, h, xp=dev)
+            want = jtt.decode_region(data, x, y, w, h)
+            check(got.shape == want.shape == (h, w, 3), (label, got.shape, want.shape))
+            n_diff = int((got != want).sum())
+            log(f"golden: decode_region({x}, {y}, {w}, {h}, xp={dev}) of {label}: {n_diff} "
+                "values differ from the host numpy region")
+            check(n_diff == 0, (label, (x, y, w, h), n_diff))
+
+    # K4 alone: the Y plane of slice image 0 (real coefficients), random
+    # planes at 8-bit magnitudes (int16 and int32) and at 12-bit ones
+    # (quant entries up to 65,535), and the 12-bit stream's plane.
+    rng = np.random.default_rng(4444)
+    y_idx = res.geometry.components[0].component_index
+    y_plane = torch.from_numpy(res.coefficients[y_idx]).to(dev)
+    q_y = torch.from_numpy(quant_tables(res)[0]).to(dev)
+    n_blocks = y_plane.shape[0] * y_plane.shape[1]
+    k4_check("Y of slice image 0", y_plane, q_y, 128)
+    rand = rng.integers(-1024, 1024, size=tuple(y_plane.shape)).astype(np.int16)
+    rand = torch.from_numpy(rand).to(dev)
+    q_rand = torch.from_numpy(rng.integers(1, 256, size=64).astype(np.int32)).to(dev)
+    k4_check("random int16", rand, q_rand, 128)
+    k4_check("random int32", rand.to(torch.int32), q_rand, 128)
+    rand12 = torch.from_numpy(rng.integers(-256, 256, size=tuple(y_plane.shape)).astype(np.int16))
+    q12 = torch.from_numpy(rng.integers(1, 65536, size=64).astype(np.int32)).to(dev)
+    k4_check("random 12-bit, quant up to 65535", rand12.to(dev), q12, 2048)
+    res12 = jtt.decode(extra["12-bit gray"][0])
+    c12 = res12.coefficients[res12.geometry.components[0].component_index]
+    k4_check("12-bit gray stream", torch.from_numpy(c12).to(dev),
+             torch.from_numpy(quant_tables(res12)[0]).to(dev), 2048)
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    matrix = kernels.transform_matrix(dev)
+    deq = (y_plane.reshape(-1, 64).to(torch.int32) * q_y).to(torch.float32)
+    fns = (
+        lambda: decode_stage.blocks_to_plane(
+            decode_stage.dequantize_idct_shift_exact(y_plane, q_y, 128)),
+        lambda: kernels.butterfly_idct_shift(y_plane, q_y, 128),
+        lambda: torch.matmul(deq, matrix),
+    )
+    p_ev, k_ev, lib_ev = device_ms(*fns)
+    warm = kernel_ms(*fns)
+    cold = kernel_ms(*fns, flush=flush)
+    del flush
+    b_ms, b_by = k4_bound(n_blocks, 2)
+    log(f"golden: K4 Y of slice image 0 ({n_blocks} blocks int16), CUDA events around each "
+        f"call (launch gaps included): K4 {k_ev:.6f} ms, plain {p_ev:.6f} ms, torch.matmul "
+        f"{lib_ev:.6f} ms (median of {TIMED_RUNS} in turns)")
+    for what, (p_ms, k_ms, lib_ms) in (("warm", warm), ("L2 flushed", cold)):
+        log(f"golden: K4 Y of slice image 0, {what}: K4 {k_ms:.6f} ms ({b_ms / k_ms:.1%} of its "
+            f"{b_by} bound {b_ms:.6f} ms), plain (dct.idct8x8 in torch ops) {p_ms:.6f} ms, "
+            f"torch.matmul of the dequantized fp32 blocks by the folded IDCT matrix {lib_ms:.6f} "
+            "ms (the same transform, not bit-exact) (kernel time, mean of "
+            f"{TIMED_RUNS} in turns)")
+    p_ms, k_ms, lib_ms = cold
+    log(f"golden: phase {time.perf_counter() - start:.3f} s")
+    return {"name": "butterfly_idct_shift", "route": "cuda", "source": K4_SOURCE,
+            "replaces": K4_REPLACES, "launches": launches, "max_abs_err": 0, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def step_inputs(datas):
     """``full_step``'s inputs from the host scans of ``datas`` (same
     geometry and tables): (Y, Cb, Cr) int16 coefficient planes stacked
@@ -1980,11 +2180,13 @@ def main():
     scan_records = phase_device_scan(sl["sources"], sl["datas"], dev)
     step_records = phase_full_step(step_inputs(sl["datas"]), dev)
     phase_mesh(sl)
+    record_k4 = phase_golden(sl, dev)
     log(f"K1 launches on the later paths: fancy {3 * N_IMAGES}, u16 {3 * N_IMAGES}, "
         f"stripes {stripe_launches}, full_step {step_records['k1']['launches']}; K2 on the "
         f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}")
     print(json.dumps({"kernels": [*records.values(), record_k2, *box_records.values(),
-                                  *scan_records.values(), *step_records.values()]}))
+                                  *scan_records.values(), *step_records.values(),
+                                  record_k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

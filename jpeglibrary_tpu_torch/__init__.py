@@ -16,7 +16,11 @@ subsample + FDCT + quantize kernel (``csrc/fdct_quant.cu``) behind the RGB,
 gray and CMYK/YCCK encoders. Every device entry point takes an explicit
 ``device`` (or a mesh, whose ranks each run on their own device); CPU
 tensors run the kernels' plain PyTorch versions, CUDA tensors the
-kernels. ``parallel`` holds the mesh layer, ``graft_entry`` the
+kernels. The host decode's ``xp`` takes a torch device where the JAX
+package takes ``jnp`` (``jtt.decode(data, xp=torch)`` on the card,
+``xp=torch.device(...)`` on any): its ``planes`` then come from the K4
+butterfly IDCT kernel (``csrc/butterfly_idct.cu``), bit-equal to the
+host's. ``parallel`` holds the mesh layer, ``graft_entry`` the
 repository's entry points and ``cli`` the five command-line tools.
 
 ``__all__`` holds the JAX package's public names, each the port's device
@@ -50,6 +54,7 @@ from .ops.pipeline import (
     transform_dense,
     transform_mcu,
     transform_mcu2,
+    transform_packed,
     transform_to_rgb8,
     transform_to_u16,
 )
@@ -65,5 +70,6 @@ __all__ = [
     # The port's own.
     "JpegDecodeError", "JpegEncodeError", "decode_rgb_stripes", "decode_rgb_streaming",
     "device_inputs", "encode", "to_rgb8_device", "transform_delta", "transform_dense",
-    "transform_mcu", "transform_mcu2", "transform_to_rgb8", "transform_to_u16",
+    "transform_mcu", "transform_mcu2", "transform_packed", "transform_to_rgb8",
+    "transform_to_u16",
 ]

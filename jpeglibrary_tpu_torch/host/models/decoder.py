@@ -69,6 +69,11 @@ class DecodeResult:
     Output formatting (8-bit clamp, 16-bit extension, RGB) happens on
     top — either via the host xp backend (golden-parity path) or the
     jitted fused device pipeline (throughput path).
+
+    ``xp`` (the decode's) says where ``planes`` are computed: numpy on
+    the host, or a torch device (``torch`` for the card,
+    ``torch.device(...)`` for any) through the port's K4, bit-equal to
+    numpy and downloaded once. Lossless results never read it.
     """
 
     def __init__(
@@ -242,7 +247,7 @@ class DecodeResult:
                 planes = decode_stage.decode_components_to_planes(
                     self.coefficients, self.quant, self.geometry, xp=self._xp
                 )
-                self._planes = {k: np.asarray(v) for k, v in planes.items()}
+                self._planes = decode_stage.planes_to_host(planes)
         return self._planes
 
     def prepack(self) -> None:

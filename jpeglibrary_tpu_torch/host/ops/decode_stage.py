@@ -19,6 +19,14 @@ writers of the host ``to_rgb8`` and the folded matrices of K1, the
 full one (``fused_transform_matrix``, from the numpy half of
 ``jpeglibrary_tpu/ops/pallas_kernels.py``) and the reduced ones of the
 scaled decode (``scaled_folded_matrix``).
+
+Its ``xp`` takes numpy, the host golden path, or a torch device in the
+place of the JAX package's ``jnp``: ``torch`` (the module) means the
+card, ``torch.device(...)`` names a device. There
+:func:`decode_components_to_planes` runs the port's device decode
+(``jpeglibrary_tpu_torch.ops.decode_stage``, K4 on the card), whose
+planes equal the numpy planes bit for bit, and :func:`planes_to_host`
+brings them back in one download.
 """
 
 from __future__ import annotations
@@ -120,7 +128,15 @@ def decode_components_to_planes(
     geometry: FrameGeometry,
     xp=np,
 ) -> Dict[int, "np.ndarray"]:
-    """All components -> cropped int32 sample planes [H, W]."""
+    """All components -> cropped int32 sample planes [H, W]: numpy arrays
+    for ``xp=np``, tensors on the device that ``xp`` names otherwise
+    (:func:`device_of`)."""
+    device = device_of(xp)
+    if device is not None:
+        from ...ops import decode_stage as device_stage
+
+        return device_stage.decode_components_to_planes(
+            coefficient_planes, quant_tables_zz, geometry, device)
     out = {}
     for cg in geometry.components:
         out[cg.component_index] = component_plane(
@@ -134,6 +150,34 @@ def decode_components_to_planes(
             xp=xp,
         )
     return out
+
+
+def device_of(xp):
+    """None for ``xp=np`` (the host path); for ``torch`` the card
+    (``cuda``), as ``jnp`` means the JAX default device; for a
+    ``torch.device`` that device. Raises ``TypeError`` for any other value."""
+    if xp is np:
+        return None
+    import torch
+
+    if xp is torch:
+        return torch.device("cuda")
+    if isinstance(xp, torch.device):
+        return xp
+    raise TypeError(
+        f"xp must be numpy (the host), torch (the card) or a torch.device, got {xp!r}"
+    )
+
+
+def planes_to_host(planes) -> Dict[int, "np.ndarray"]:
+    """Sample planes by component index as numpy arrays: numpy planes as
+    they are, device planes (all [H, W] int32) in one download."""
+    if all(isinstance(v, np.ndarray) for v in planes.values()):
+        return dict(planes)
+    import torch
+
+    host = torch.stack(list(planes.values())).cpu().numpy()
+    return dict(zip(planes, host))
 
 
 # ---------------------------------------------------------------------------

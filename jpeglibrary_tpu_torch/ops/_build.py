@@ -62,12 +62,21 @@ _K3_ARGS = [
     ctypes.c_void_p, ctypes.c_int64,   # out, max_blocks
     ctypes.c_void_p,                   # cudaStream_t
 ]
+_K4_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p,  # coeffs, quant
+    ctypes.c_void_p,                   # out
+    ctypes.c_int64, ctypes.c_int64,    # n_blocks, width_blocks
+    ctypes.c_int,                      # level_shift
+    ctypes.c_void_p,                   # cudaStream_t
+]
 _ENTRY_POINTS = {
     "jpx_dequant_idct_i32": _K1_ARGS,
     "jpx_dequant_idct_i16": _K1_ARGS,
     "jpx_fdct_quant_i32": _K2_ARGS,
     "jpx_fdct_quant_u8": _K2_ARGS,
     "jpx_huffman_scan": _K3_ARGS,
+    "jpx_butterfly_idct_i16": _K4_ARGS,
+    "jpx_butterfly_idct_i32": _K4_ARGS,
 }
 
 

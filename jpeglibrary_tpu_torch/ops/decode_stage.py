@@ -9,11 +9,25 @@ the output type; :func:`dequantize_idct_shift`
 is the plain PyTorch version of the K1 kernel (``ops/kernels.py``) and,
 like the Pallas kernel and the XLA matvecs it mirrors, is within 1
 sample LSB of the butterfly IDCT and of the JAX scaled transform.
+
+The bit-exact decode (``JpegDecoder.decode(xp=...)`` with a torch device,
+the JAX package's ``xp=jnp``) runs :func:`decode_components_to_planes`:
+per component one upload, K4 (``kernels.butterfly_idct_shift``: the
+butterfly IDCT of ``ops/dct.py`` in the reference's operation order),
+duplicate upsampling and the crop. :func:`dequantize_idct_shift_exact`
+is K4's plain version; its planes equal the host numpy planes bit for bit.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
+
+from ..host.models.geometry import FrameGeometry
+from ..host.ops.zigzag import BLOCK_TO_ZIGZAG
+from . import dct, kernels
 
 
 def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
@@ -48,6 +62,52 @@ def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
     samples = torch.round(pixels).to(torch.int32) + level_shift
     n = int(round(matrix.shape[1] ** 0.5))
     return samples.reshape(-1, n, n)
+
+
+def dequantize_idct_shift_exact(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
+                                level_shift: int) -> torch.Tensor:
+    """[..., 64] zig-zag coefficients + [64] zig-zag quant table -> int32
+    samples [..., 8, 8], bit for bit the JAX package's
+    ``dequantize_idct_shift``: the int32 product, the un-zigzag gather, one
+    rounding to float32, the butterfly ``dct.idct8x8``, rint (half to
+    even, ``torch.round``) and the level shift. K4's plain version."""
+    deq = coeffs_zz.to(torch.int32) * quant_zz.to(torch.int32)  # exact int32
+    gather = torch.as_tensor(BLOCK_TO_ZIGZAG, dtype=torch.int64, device=deq.device)
+    natural = deq.index_select(-1, gather)  # natural[j] = zigzag[BLOCK_TO_ZIGZAG[j]]
+    blocks = natural.reshape(natural.shape[:-1] + (8, 8)).to(torch.float32)
+    return torch.round(dct.idct8x8(blocks)).to(torch.int32) + level_shift
+
+
+def component_plane(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
+                    hs: int, vs: int, height: int, width: int) -> torch.Tensor:
+    """One component's bit-exact decode transform: [Hb, Wb, 64] zig-zag
+    coefficients -> the cropped int32 plane [height, width], through K4
+    (``kernels.butterfly_idct_shift``; its plain version on the CPU), then
+    duplicate upsampling by (hs, vs) and the crop. The port of the JAX
+    ``component_plane``."""
+    plane = kernels.butterfly_idct_shift(coeffs_zz, quant_zz, level_shift)
+    return upsample_duplicate(plane, hs, vs)[:height, :width]
+
+
+def decode_components_to_planes(coefficient_planes, quant_tables_zz,
+                                geometry: FrameGeometry, device) -> Dict[int, torch.Tensor]:
+    """Every component's coefficient plane (numpy ``[Hb, Wb, 64]``, int16
+    as the host decoder writes them) and zig-zag quant table -> cropped
+    int32 sample planes [H, W] on ``device``, by component index: the JAX
+    ``decode_components_to_planes`` on a torch device. One upload per
+    component plane (the quant tables go up together), one K4 launch per
+    component on the card."""
+    device = torch.device(device)
+    comps = geometry.components
+    quants = np.stack([np.asarray(quant_tables_zz[c.component_index]) for c in comps])
+    quants = torch.from_numpy(quants.astype(np.int32)).to(device)
+    out = {}
+    for cg, quant in zip(comps, quants):
+        coeffs = torch.as_tensor(np.ascontiguousarray(coefficient_planes[cg.component_index]))
+        out[cg.component_index] = component_plane(
+            coeffs.to(device), quant, geometry.level_shift, cg.hs, cg.vs,
+            geometry.height, geometry.width)
+    return out
 
 
 def blocks_to_plane(samples: torch.Tensor) -> torch.Tensor:

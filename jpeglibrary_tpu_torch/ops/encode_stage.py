@@ -8,7 +8,10 @@ card all of it is K2 (``kernels.fdct_quantize``), one launch per
 component. The integer ops are bit-exact against the numpy originals;
 :func:`pad_to_grid` -> :func:`subsample_box` -> :func:`fdct_quantize` is
 the plain PyTorch version of K2 and, like the Pallas kernel it mirrors,
-is within 1 LSB of the butterfly FDCT.
+is within 1 LSB of the butterfly FDCT. :func:`fdct_quantize_butterfly` is
+the other route of the JAX ``fdct_quantize`` (``use_matmul=False``): the
+reference's butterfly FDCT (``ops/dct.py``), bit for bit the JAX route on
+any device, in plain PyTorch ops as it is XLA ops there.
 
 :func:`symbol_histograms_device` is the port of the JAX package's device
 symbol statistics (``encode_stage.py:320-390``): the DC and AC Huffman
@@ -23,7 +26,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from . import kernels
+from ..host.ops.zigzag import ZIGZAG_TO_BLOCK
+from . import dct, kernels
 
 
 def pad_to_grid(plane: torch.Tensor, height_padded: int, width_padded: int) -> torch.Tensor:
@@ -75,6 +79,22 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
     shifted = blocks.to(torch.float32) - float(level_shift)
     zz = (shifted @ matrix) / quant_zz.to(torch.float32)
     return torch.round(zz).to(torch.int32).to(torch.int16).reshape(hb, wb, 64)
+
+
+def fdct_quantize_butterfly(plane: torch.Tensor, quant_zz: torch.Tensor,
+                            level_shift: float = 128.0) -> torch.Tensor:
+    """[Hb*8, Wb*8] integer samples + [64] zig-zag quant -> int16 [Hb, Wb,
+    64] zig-zag coefficients through the butterfly: level shift in float32,
+    ``dct.fdct8x8``, zig-zag, ``rint(zz / q)`` in float32 (half to even).
+    The counterpart of the JAX ``fdct_quantize(use_matmul=False)``, equal
+    to it bit for bit, on the plane's device."""
+    h, w = plane.shape
+    hb, wb = h // 8, w // 8
+    blocks = plane.reshape(hb, 8, wb, 8).permute(0, 2, 1, 3).to(torch.float32)
+    coef = dct.fdct8x8(blocks - float(level_shift)).reshape(hb, wb, 64)
+    zz = coef.index_select(-1, torch.as_tensor(ZIGZAG_TO_BLOCK, dtype=torch.int64,
+                                               device=coef.device))
+    return torch.round(zz / quant_zz.to(torch.float32)).to(torch.int32).to(torch.int16)
 
 
 def forward_component(plane: torch.Tensor, quant_zz: torch.Tensor, h: int, v: int,

@@ -1,4 +1,4 @@
-"""The port's three kernels and their wrappers.
+"""The port's four kernels and their wrappers.
 
 K1, the decode transform: dequantize + un-zigzag + 2-D IDCT + round +
 level shift over a batch of 8x8 blocks. Port of the decode half of
@@ -44,6 +44,20 @@ on the card is not bytes: each symbol is a chain of dependent steps
 (a table lookup, the value bits, the next bit position), so the segment
 with the most symbols sets its time; more and shorter segments spread
 the chains over more threads.
+
+K4, the bit-exact decode transform of one component plane: dequantize +
+un-zigzag + the float32 AAN butterfly IDCT + rint + level shift, with
+``blocks_to_plane`` fused into the store. Counterpart of the XLA
+butterfly that ``JpegDecoder.decode(xp=jnp)`` runs
+(``jpeglibrary_tpu/ops/decode_stage.py:32`` ``dequantize_idct_shift``
+through ``ops/dct.py:167`` ``idct8x8``), not of a Pallas kernel: where K1
+folds the IDCT into one product and is within 1 LSB, K4 repeats the
+butterfly's operations in their order and equals the host numpy planes
+(and the reference's golden fixtures) bit for bit.
+:func:`butterfly_idct_shift` launches ``csrc/butterfly_idct.cu`` for a
+CUDA tensor and takes the plain version
+(``decode_stage.dequantize_idct_shift_exact`` -> ``blocks_to_plane``)
+only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -336,3 +350,56 @@ def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Ten
 
 
 huffman_scan.launches = 0
+
+
+def butterfly_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
+                         level_shift: int) -> torch.Tensor:
+    """[Hb, Wb, 64] zig-zag int16 (or int32) coefficients + [64] int32
+    zig-zag quant table -> the int32 sample plane [Hb*8, Wb*8]: the int32
+    product, its float32 conversion, the butterfly IDCT of ``ops/dct.py``,
+    rint (half to even) and the level shift, bit for bit the JAX package's
+    ``dequantize_idct_shift`` + ``blocks_to_plane`` (quant entries up to
+    65,535 and coefficients of int16 keep the product within int32).
+
+    On a CPU tensor it runs the plain version
+    (``decode_stage.dequantize_idct_shift_exact`` -> ``blocks_to_plane``);
+    on a CUDA tensor it launches ``csrc/butterfly_idct.cu``, or raises.
+    ``butterfly_idct_shift.launches`` counts the kernel's launches."""
+    if coeffs_zz.dtype not in (torch.int32, torch.int16):
+        raise TypeError(f"coefficients must be int32 or int16, got {coeffs_zz.dtype}")
+    if coeffs_zz.dim() != 3 or coeffs_zz.shape[-1] != 64:
+        raise ValueError(f"coefficients must be [Hb, Wb, 64], got {tuple(coeffs_zz.shape)}")
+    if quant_zz.dtype != torch.int32 or tuple(quant_zz.shape) != (64,):
+        raise ValueError(
+            f"quant must be int32 [64], got {quant_zz.dtype} {tuple(quant_zz.shape)}"
+        )
+    if quant_zz.device != coeffs_zz.device:
+        raise ValueError(f"quant on {quant_zz.device}, coefficients on {coeffs_zz.device}")
+    device = coeffs_zz.device
+    hb, wb = coeffs_zz.shape[0], coeffs_zz.shape[1]
+    if device.type == "cpu":
+        return decode_stage.blocks_to_plane(
+            decode_stage.dequantize_idct_shift_exact(coeffs_zz, quant_zz, level_shift))
+    if device.type != "cuda":
+        raise ValueError(f"no K4 kernel for device {device}")
+    if not (coeffs_zz.is_contiguous() and quant_zz.is_contiguous()):
+        raise ValueError("coefficients and quant must be contiguous")
+
+    out = torch.empty((hb * 8, wb * 8), dtype=torch.int32, device=device)
+    if out.numel() == 0:
+        return out
+    if coeffs_zz.data_ptr() % 16:  # the kernel loads 16 bytes at a time
+        coeffs_zz = coeffs_zz.clone()
+    lib = _build.load_library()
+    fn = lib.jpx_butterfly_idct_i32 if coeffs_zz.dtype == torch.int32 else lib.jpx_butterfly_idct_i16
+    with torch.cuda.device(device):
+        err = fn(coeffs_zz.data_ptr(), quant_zz.data_ptr(), out.data_ptr(), hb * wb, wb,
+                 int(level_shift), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        butterfly_idct_shift.launches += 1
+    return out
+
+
+butterfly_idct_shift.launches = 0

@@ -3,7 +3,9 @@
 Port of ``jpeglibrary_tpu/ops/pipeline.py``: the densify of each wire
 (``jitted_transform_mcu2_inner`` for the v2 split-stream wire,
 ``jitted_transform_mcu_inner`` for the v1 MCU wire,
-``jitted_transform_delta`` for the v1 plane-order wire, and the dense
+``jitted_transform_delta`` for the v1 plane-order wire,
+``jitted_transform_packed`` for the numpy (flat index, value) wire of
+``host/ops/pipeline.pack_sparse``, and the dense
 ``jitted_transform``), and the shared tails ``transform_to_rgb8`` (with
 duplicate or libjpeg's fancy upsampling) and ``transform_to_u16`` (the
 16-bit extending writer, ``output="u16"``), at full size and, for RGB
@@ -296,6 +298,30 @@ def transform_delta(packed_i16, quants, geometry: FrameGeometry, device, *,
     ``[B, 2n]`` int16."""
     return _wire_transform(densify_delta, packed_i16, quants, geometry, device, scale_n,
                            upsample, output)
+
+
+def transform_packed(packed_i32, quants, geometry: FrameGeometry, device, *,
+                     output: str = "rgb8", upsample: str = "duplicate") -> torch.Tensor:
+    """One image's numpy packer wire, ``[2n]`` int32 interleaved (flat
+    index, value) pairs over the concatenated component planes
+    (``host/ops/pipeline.pack_sparse``), + ``[C, 64]`` int32 zig-zag quant
+    tables -> planar uint8 RGB ``[3, H, W]`` on ``device``, or ``[H, W,
+    C]`` uint16 with ``output="u16"``: the port of
+    ``jitted_transform_packed``. The pairs are scatter-added into zeroed
+    planes (the bucket padding adds 0 at index 0), then the shared tail
+    runs (K1 per component)."""
+    shapes = [(c.blocks_per_column, c.blocks_per_line) for c in geometry.components]
+    total = sum(64 * hb * wb for hb, wb in shapes)
+    pairs = torch.as_tensor(packed_i32, dtype=torch.int32, device=device).reshape(-1, 2)
+    quants = torch.as_tensor(quants, dtype=torch.int32, device=device)
+    dense = torch.zeros(total, dtype=torch.int32, device=pairs.device)
+    dense.index_add_(0, pairs[:, 0].to(torch.int64), pairs[:, 1])
+    planes = []
+    off = 0
+    for hb, wb in shapes:
+        planes.append(dense[off : off + 64 * hb * wb].view(1, hb, wb, 64))
+        off += 64 * hb * wb
+    return _tail(planes, quants[None], geometry, 8, upsample, output)[0]
 
 
 def transform_dense(coeffs: Sequence, quants, geometry: FrameGeometry, device, *,

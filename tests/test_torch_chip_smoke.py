@@ -301,6 +301,54 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
                       ("full_step launches", 0, 0)]
 
 
+@pytest.mark.parametrize("n_blocks,itemsize,want_us", [
+    (65536, 2, 7.5123),   # the Y plane of a 2048x2048 image, int16 coefficients
+    (65536, 4, 10.0163),  # int32 coefficients
+    (16384, 2, 1.8781),   # a chroma plane
+])
+def test_k4_bound(smoke, n_blocks, itemsize, want_us):
+    """K4's bound: coefficients and the table in, the int32 plane out, one
+    read and one write each; its float work is far below its bytes."""
+    ms, by = smoke.k4_bound(n_blocks, itemsize)
+    assert by == "bytes"
+    assert abs(ms * 1e3 - want_us) < 1e-3, ms * 1e3
+    assert smoke.K4_OPS_PER_BLOCK == 1024
+
+
+def test_golden_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """The bit-exact decode phase runs end to end on the CPU at 64 x 64
+    with the timers stubbed: every plane, region and K4 check holds, 0
+    values differing, but the launch counts, which only the card can meet;
+    its record has every key of the kernels line."""
+    failed = []
+    monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
+    monkeypatch.setattr(smoke, "FLUSH_BYTES", 64)
+    monkeypatch.setattr(smoke, "GOLDEN_RECTS", ((3, 5, 20, 17), (1, 31, 63, 1)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    stub = lambda *fns, **kw: [0.5 for fn in fns if fn() is not None]
+    monkeypatch.setattr(smoke, "kernel_ms", stub)
+    monkeypatch.setattr(smoke, "device_ms", stub)
+    lines = []
+    monkeypatch.setattr(smoke, "log", lambda *a: lines.append(" ".join(map(str, a))))
+    sources = [smoke.synth_image(s, 64) for s in range(2)]
+    sl = {"sources": sources, "datas": [smoke.encode_420(rgb, 75) for rgb in sources]}
+    rec = smoke.phase_golden(sl, torch.device("cpu"))
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert set(rec) == keys and rec["name"] == "butterfly_idct_shift"
+    assert rec["max_abs_err"] == 0 and rec["launches"] == 0 and rec["bound_by"] == "bytes"
+    assert (ROOT / rec["source"]).is_file() and rec["replaces"].startswith("jpeglibrary_tpu/")
+    labels = ["slice image 0", "slice image 1", "12-bit gray", "progressive", "arithmetic",
+              "restart 16"]
+    assert [f[0] for f in failed] == labels and all(f[1:3] == ("K4 launches", 0) for f in failed)
+    planes = [ln for ln in lines if ".planes of" in ln]
+    regions = [ln for ln in lines if "decode_region(" in ln]
+    k4 = [ln for ln in lines if "K4 vs plain" in ln]
+    assert len(planes) == 6 and len(regions) == 10 and len(k4) == 5
+    assert all(" 0 values differ" in ln for ln in planes + regions)
+    assert all(": 0/" in ln for ln in k4)
+
+
 @pytest.mark.parametrize("world", [1, 2])
 def test_mesh_phase_rehearses_on_cpu_ranks(smoke, world):
     """The mesh phase's ranks (``mesh_rank``) run end to end in gloo CPU

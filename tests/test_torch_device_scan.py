@@ -204,7 +204,8 @@ def test_kernel_source_is_built_and_bound():
     entry point the loader binds, with as many parameters as its ctypes
     signature."""
     sources = sorted(p.name for p in _build._CSRC.glob("*.cu"))
-    assert sources == ["dequant_idct.cu", "fdct_quant.cu", "huffman_scan.cu"]
+    assert sources == ["butterfly_idct.cu", "dequant_idct.cu", "fdct_quant.cu",
+                       "huffman_scan.cu"]
     text = (_build._CSRC / "huffman_scan.cu").read_text()
     m = re.search(r'extern "C" int jpx_huffman_scan\(([^)]*)\)', text)
     assert m and m.group(1).count(",") + 1 == len(_build._ENTRY_POINTS["jpx_huffman_scan"])

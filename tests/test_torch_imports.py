@@ -65,6 +65,19 @@ def test_cpu_slice_loads_neither_jax_nor_pil(tmp_path):
         "assert jtt.decode(jtt.encode_cmyk(ink, 75, device='cpu', ycck=True)).width == 64\n"
         "assert len(jtt.encode_batch_rgb([rgb, rgb], device='cpu')) == 2\n"
         "assert jtt.decode_region(data, 8, 8, 16, 16).shape == (16, 16, 3)\n"
+        "import torch\n"
+        "cpu = torch.device('cpu')\n"
+        "assert jtt.decode_region(data, 8, 8, 16, 16, xp=cpu).shape == (16, 16, 3)\n"
+        "assert jtt.decode(arith, xp=cpu).planes[0].shape == (48, 64)\n"
+        "from jpeglibrary_tpu_torch.host.ops.pipeline import pack_sparse\n"
+        "dense = jtt.decode(data)\n"
+        "packed = pack_sparse(dense.coefficients, dense.geometry)\n"
+        "out = jtt.transform_packed(packed, q, dense.geometry, 'cpu')\n"
+        "assert tuple(out.shape) == (3, 48, 64)\n"
+        "from jpeglibrary_tpu_torch.ops import encode_stage\n"
+        "z = encode_stage.fdct_quantize_butterfly(torch.zeros(16, 16, dtype=torch.int32),\n"
+        "                                         torch.ones(64, dtype=torch.int32))\n"
+        "assert tuple(z.shape) == (2, 2, 64)\n"
         "assert jtt.decode(jtt.transform(data, 'rot90')).width == 48\n"
         "assert len(jtt.optimize(data)) < len(data)\n"
         "from jpeglibrary_tpu_torch.ops import device_scan\n"
