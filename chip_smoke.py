@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase
+    python3 chip_smoke.py --phase device_scan   # the device scan (K3) alone
 
 Drives the port's main paths on the card at the size users run: the
 serving decode, a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
@@ -85,19 +86,25 @@ layer in spawned ranks. In order:
    stripes of 3 K1 launches each, bit-equal when concatenated to the
    card's ``to_rgb8_device``; the peak device memory of the stripe walk
    beside the full decode's (``torch.cuda.max_memory_allocated``);
-14. device scan (K3): the 8 sources encoded on the card at restart
-   intervals of 128, 16 and 4 MCUs (128, 1,024 and 4,096 segments), and
-   one of the slice's streams without restart markers (one segment),
-   through ``decode_baseline_device``, one K3 launch per image: every
+14. device scan (K3, the subsequence decoder): the 8 sources encoded on
+   the card at restart intervals of 128, 16 and 4 MCUs (128, 1,024 and
+   4,096 segments), and one of the slice's streams without restart
+   markers (one segment), through ``decode_baseline_device``, one K3 call
+   per image, with its sync rounds and subsequence length logged: every
    image's segments equal to the host scan's coefficients, and through the
    dense transform (K1) RGB equal to the host-scan path's, bit for bit; K3
-   equal to its plain version at 16 and 4; by interval, K3's time with
-   its output's zero fill (CUDA events, warm and L2-flushed) with ns per
-   symbol of the longest segment, its bound, the host prepass, the
-   upload, the entry end to end and the port's host scan of the same
-   images; K3 equal to its plain version on a corrupt copy of one
-   image's segments, and to the host scan on gray, 4:4:4 and 4:2:2
-   streams;
+   equal to its plain version at 16 and 4 (the plain loop steps at ~3 ms
+   on the card); by interval, K3's time with its zero fills and sync-flag
+   reads (CUDA events, warm and L2-flushed) with ns per symbol, its bound,
+   its time at each subsequence length of K3_SUB_BITS with the rounds, the
+   host prepass, the upload, the entry end to end and the port's host scan
+   of the same images; at ri 0 on a 128x128 corner of source 0, clean and
+   with bytes changed, K3 equal to the host scan, its plain version and
+   its CPU model (``decode_segments_split_plain``, on the card) with the
+   same rounds; K3 equal to its plain version on a corrupt copy of one
+   image's segments at ri 4, and to the host scan on gray, 4:4:4 and
+   4:2:2 streams. ``--phase device_scan`` runs this phase alone after the
+   build, on sources it makes itself;
 15. full step: ``full_step`` on the slice's coefficient planes (Y
    [8, 256, 256, 64] int16), 3 K1 and 3 K2 launches, its RGB (2 levels on
    <= 1e-4) and its requantised Y, Cb and Cr (1 on <= 1e-3) against the
@@ -141,8 +148,8 @@ Each phase sets the kernels' launch counts to 0 just before the path it
 drives and reads them just after. Any failure raises and the script
 exits non-zero. The line before the last is a JSON record of the
 kernels (K1, one entry per K1 variant, K2, one entry per K2 box of 9,
-K3 at each restart interval, the K1 and K2 calls of ``full_step``, and
-K4: launches on the main paths, kernel
+K3 at each restart interval and on the small ri 0 stream, the K1 and K2
+calls of ``full_step``, and K4: launches on the main paths, kernel
 time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
@@ -182,6 +189,9 @@ GOLDEN_RECTS = ((136, 264, 640, 480), (1, 1031, 2047, 17))  # (x, y, w, h) regio
 RESTART_INTERVALS = (128, 16, 4)
 PLAIN_RIS = (16, 4)
 CORRUPT_BYTES = 2000  # changed in one image's 4,096 segments at ri 4
+K3_SUB_BITS = (512, 1024, 2048)  # K3's subsequence lengths, each timed on image 0
+SMALL_SIZE = 128  # K3 against its plain version at ri 0 on this corner of source 0
+SMALL_CORRUPT_BYTES = 40  # changed in the small stream's one segment
 K3_OPS_PER_SYMBOL = 24  # integer operations of K3's loop body per symbol, counted in its source
 KERNEL_BLOCKS = (65536, 16384)  # Y and each chroma plane of a 2048x2048 4:2:0 image
 LEVEL_SHIFTS = (128, 2048)
@@ -1518,14 +1528,97 @@ def k3_args(buf, const, dev):
             int(const["mcu_counts"].max()) * const["bpm"])
 
 
+def k3_sub_bits_ms(args, max_blocks, want, flush, runs):
+    """K3 at each subsequence length of K3_SUB_BITS on one image's segments:
+    {L: (flushed ms, sync rounds)}, each output equal to ``want``."""
+    from jpeglibrary_tpu_torch.ops import kernels
+
+    out = {}
+    for sub_bits in K3_SUB_BITS:
+        def call():
+            return kernels.huffman_scan(*args, max_blocks=max_blocks, sub_bits=sub_bits)
+
+        check(torch.equal(call(), want), (sub_bits, "K3 differs at this subsequence length"))
+        rounds = kernels.huffman_scan.rounds
+        (ms,) = device_ms(call, runs=runs, warmup=1, flush=flush)
+        out[sub_bits] = (ms, rounds)
+    return out
+
+
+def k3_small_checks(rgb, dev, flush):
+    """K3 at ri 0 on a small stream, where the plain version runs: the
+    stream through ``decode_baseline_device``, equal to the host scan, to
+    the plain version and to the CPU model of the algorithm
+    (``decode_segments_split_plain``, run here on the card) with the same
+    sync rounds; then the same on a copy with bytes changed. Returns K3's
+    record for the stream."""
+    import jpeglibrary_tpu_torch as jtt
+    from jpeglibrary_tpu_torch.ops import device_scan, kernels
+
+    data = encode_420(rgb, 75)
+    buf, const, geo = device_scan.scan_inputs(data)
+    reset_counts()
+    coeffs, _ = device_scan.decode_baseline_device(data, device=dev)
+    torch.cuda.synchronize()
+    launches, rounds = kernels.huffman_scan.launches, kernels.huffman_scan.rounds
+    check(launches == 1, ("small ri 0: K3 launches", launches))
+    res = jtt.decode(data, sparse_direct=True)
+    want = device_scan.segment_rows([res.coefficients[c.component_index]
+                                     for c in geo.components], geo, 0)
+    check(torch.equal(coeffs.cpu(), torch.from_numpy(want)), "small ri 0: K3 differs from the "
+                                                              "host scan")
+    args, max_blocks = k3_args(buf, const, dev)
+    sub_bits = kernels.HUFFMAN_SUB_BITS
+    plain, secs = timed(lambda: device_scan.decode_segments_plain(*args, max_blocks))
+    max_abs = int((plain - coeffs).abs().max())
+    check(max_abs == 0, ("small ri 0: K3 differs from its plain version", max_abs))
+    model, model_rounds = device_scan.decode_segments_split_plain(*args, max_blocks, sub_bits)
+    check(torch.equal(model, coeffs) and model_rounds == rounds,
+          ("small ri 0: K3 differs from its CPU model", model_rounds, rounds))
+    n_sub = device_scan.subsequence_count(buf.shape[1], sub_bits)
+    (cold,) = device_ms(lambda: kernels.huffman_scan(*args, max_blocks=max_blocks),
+                        warmup=1, flush=flush)
+    symbols = int(segment_symbols(coeffs, torch.from_numpy(const["mcu_counts"]).to(dev)
+                                  * const["bpm"]).sum())
+    b_ms, b_by = k3_bound(buf.nbytes, coeffs.numel() * 4, 2 * const["n_comps"], symbols)
+    log(f"device scan: ri 0, {rgb.shape[1]}x{rgb.shape[0]}: {buf.shape[1] - 8} bytes, "
+        f"{symbols} symbols, L {sub_bits} bits, {n_sub} subsequences, {rounds} sync rounds; "
+        f"K3 equals the host scan, its plain version ({secs * 1e3:.3f} ms, host clock, one "
+        f"run) and its CPU model ({model_rounds} rounds); K3 {cold:.6f} ms L2 flushed "
+        f"(CUDA events, median of {TIMED_RUNS}), {b_ms / cold:.4%} of its {b_by} bound "
+        f"{b_ms:.6f} ms")
+
+    rng = np.random.default_rng(11)
+    bad = buf.copy()
+    flips = rng.choice(bad.size - 8, SMALL_CORRUPT_BYTES, replace=False)
+    bad.reshape(-1)[flips] ^= rng.integers(1, 256, SMALL_CORRUPT_BYTES).astype(np.uint8)
+    args, max_blocks = k3_args(bad, const, dev)
+    got = kernels.huffman_scan(*args, max_blocks=max_blocks)
+    bad_rounds = kernels.huffman_scan.rounds
+    check(torch.equal(got, device_scan.decode_segments_plain(*args, max_blocks)),
+          "small ri 0: K3 differs from its plain version on a corrupt stream")
+    model, model_rounds = device_scan.decode_segments_split_plain(*args, max_blocks, sub_bits)
+    check(torch.equal(model, got) and model_rounds == bad_rounds,
+          ("small ri 0, corrupt: K3 differs from its CPU model", model_rounds, bad_rounds))
+    log(f"device scan: ri 0, {rgb.shape[1]}x{rgb.shape[0]}, {SMALL_CORRUPT_BYTES} bytes "
+        f"changed: {bad_rounds} sync rounds, K3 equal to its plain version and its CPU model; "
+        f"{int((got != coeffs).sum())} coefficients decode otherwise")
+    return {"name": f"huffman_scan[ri=0,{rgb.shape[1]}x{rgb.shape[0]}]", "route": "cuda",
+            "source": K3_SOURCE, "replaces": K3_REPLACES, "launches": launches,
+            "max_abs_err": max_abs, "ms": cold, "plain_ms": secs * 1e3, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
 def phase_device_scan(sources, datas, dev):
     """K3, the device entropy decode: ``decode_baseline_device`` of the
     sources encoded on the card at RESTART_INTERVALS, and of one of
     ``datas`` (no restart markers: one segment), each image's segments
     equal to the host scan's coefficients, and, through the dense transform
     (K1), RGB equal to the host-scan path's; K3 equal to its plain version
-    at PLAIN_RIS; then the times by restart interval. Returns one record
-    per interval; where the plain version is not run (it would take
+    at PLAIN_RIS and at ri 0 on a small stream, clean and corrupt; then the
+    times by restart interval, at the subsequence lengths of K3_SUB_BITS
+    too, with the sync rounds. Returns one record per interval and one for
+    the small stream; where the plain version is not run (it would take
     minutes to hours), the record's ``plain_ms`` and ``max_abs_err`` are
     None and K3 is held to the host scan alone."""
     import jpeglibrary_tpu_torch as jtt
@@ -1550,11 +1643,16 @@ def phase_device_scan(sources, datas, dev):
             prep_s.append(t1 - t0)
             host_s.append(time.perf_counter() - t1)
         reset_counts()
-        outs = [device_scan.decode_baseline_device(data, device=dev) for data in batch]
+        outs, rounds = [], []
+        for data in batch:
+            outs.append(device_scan.decode_baseline_device(data, device=dev))
+            rounds.append(kernels.huffman_scan.rounds)
         torch.cuda.synchronize()
         launches = kernels.huffman_scan.launches
+        n_sub = device_scan.subsequence_count(inputs[0][0].shape[1], kernels.HUFFMAN_SUB_BITS)
         log(f"device scan: ri {ri}: decode_baseline_device of {len(batch)} images: K3 launches "
-            f"{launches}")
+            f"{launches}; L {kernels.HUFFMAN_SUB_BITS} bits, {n_sub} subsequences a row "
+            f"(image 0), sync rounds by image {rounds}")
         check(launches == len(batch), (ri, "K3 launches", launches))
 
         for i, ((coeffs, geo), (_, const, _), res) in enumerate(zip(outs, inputs, results)):
@@ -1588,16 +1686,16 @@ def phase_device_scan(sources, datas, dev):
             check(max_abs == 0, (ri, "K3 differs from its plain version", max_abs))
             log(f"device scan: ri {ri}: K3 equals its plain version on the card, image 0 "
                 f"(plain {plain_ms:.3f} ms, host clock, one run)")
-        # CUDA events around the wrapper: its zero fill of the output (about
-        # 10 us) and one launch gap are in the time, as they are in the path.
-        # The profiler's records missed calls of K3 here (at ri 0 none of 5
-        # warm calls was recorded), so K3 is timed by events alone.
-        runs = TIMED_RUNS if ri else 5
-        (warm,) = device_ms(kernel, runs=runs, warmup=1)
-        (cold,) = device_ms(kernel, runs=runs, warmup=1, flush=flush)
-        up_ms = wall_ms(lambda: torch.from_numpy(buf).to(dev), runs=runs)
+        # CUDA events around the wrapper: its zero fills, the offsets' cumsum,
+        # the host's reads of the sync flag and the launch gaps are in the
+        # time, as they are in the path. The profiler's records missed calls
+        # of K3's first design here, so K3 is timed by events alone.
+        (warm,) = device_ms(kernel, warmup=1)
+        (cold,) = device_ms(kernel, warmup=1, flush=flush)
+        by_sub_bits = k3_sub_bits_ms(args, max_blocks, coeffs, flush, TIMED_RUNS)
+        up_ms = wall_ms(lambda: torch.from_numpy(buf).to(dev))
         e2e_ms = wall_ms(lambda: device_scan.decode_baseline_device(batch[0], device=dev),
-                         runs=5 if ri else 3, warmup=1)
+                         runs=5, warmup=1)
         counts = torch.from_numpy(const["mcu_counts"]).to(dev)
         symbols = segment_symbols(coeffs, counts * const["bpm"])
         longest, total = int(symbols.max()), int(symbols.sum())
@@ -1605,14 +1703,17 @@ def phase_device_scan(sources, datas, dev):
         b_ms, b_by = k3_bound(buf.nbytes, coeffs.numel() * 4, n_tables, total)
         log(f"device scan: ri {ri}: {buf.shape[0]} segments, the longest {buf.shape[1] - 8} "
             f"bytes; {total} symbols, at most {longest} in one segment; K3 with its zero fill "
-            f"{cold:.6f} ms L2 flushed, {warm:.6f} ms warm (CUDA events, median of {runs}; "
-            f"{warm * 1e6 / longest:.3f} ns per symbol of the longest segment; "
-            f"{b_ms / cold:.2%} of its {b_by} bound {b_ms:.6f} ms); host prepass (container "
-            "walk + prepare_scan) "
+            f"{cold:.6f} ms L2 flushed, {warm:.6f} ms warm (CUDA events, median of "
+            f"{TIMED_RUNS}; {warm * 1e6 / longest:.3f} ns per symbol of the longest segment, "
+            f"{warm * 1e6 / total:.3f} ns per symbol; {b_ms / cold:.2%} of its {b_by} bound "
+            f"{b_ms:.6f} ms); host prepass (container walk + prepare_scan) "
             f"{statistics.median(prep_s) * 1e3:.6f} ms, upload {up_ms:.6f} ms, "
             f"decode_baseline_device end to end {e2e_ms:.6f} ms (host clock, synchronised); "
             f"the port's host scan JpegDecoder.decode(sparse_direct=True) "
             f"{statistics.median(host_s) * 1e3:.6f} ms (median of {len(batch)} images)")
+        log(f"device scan: ri {ri}: K3 by subsequence length, L2 flushed (CUDA events, median "
+            f"of {TIMED_RUNS}), image 0: " + "; ".join(
+                f"L {sb}: {ms:.6f} ms, {r} sync rounds" for sb, (ms, r) in by_sub_bits.items()))
         records[ri] = {
             "name": f"huffman_scan[ri={ri}]", "route": "cuda", "source": K3_SOURCE,
             "replaces": K3_REPLACES, "launches": launches, "max_abs_err": max_abs,
@@ -1620,6 +1721,8 @@ def phase_device_scan(sources, datas, dev):
             "library_ms": None}
         if ri == PLAIN_RIS[-1]:
             corrupt = (buf, const, coeffs)
+
+    records["small"] = k3_small_checks(sources[0][:SMALL_SIZE, :SMALL_SIZE], dev, flush)
     del flush
 
     # A corrupt stream: bytes changed in the segments send the walk down codes
@@ -1637,7 +1740,8 @@ def phase_device_scan(sources, datas, dev):
     changed = int((got != clean).any(dim=1).sum())
     check(torch.equal(got, want), "K3 differs from its plain version on a corrupt stream")
     log(f"device scan: ri {PLAIN_RIS[-1]}, {CORRUPT_BYTES} bytes of image 0's segments changed: "
-        f"{changed} of {buf.shape[0]} segments decode otherwise, K3 equal to its plain version")
+        f"{changed} of {buf.shape[0]} segments decode otherwise, K3 equal to its plain version "
+        f"({kernels.huffman_scan.rounds} sync rounds)")
 
     # The other layouts: one component, and 4:4:4 and 4:2:2 MCUs.
     layouts = (
@@ -2158,13 +2262,43 @@ def step_inputs(datas):
     return planes, (q[0], q[1])
 
 
-def main():
+def scan_phase_only(dev):
+    """``--phase device_scan``: the device scan phase alone, on sources
+    made here (the slice's images, image 0 also by ``encode_420``), for
+    development on the card; returns its records."""
+    t0 = time.perf_counter()
+    sources = [synth_image(seed, SIZE) for seed in range(N_IMAGES)]
+    datas = [encode_420(sources[0], 75)]
+    log(f"device scan only: {N_IMAGES} sources {SIZE}x{SIZE}, one encode_420 stream, "
+        f"{time.perf_counter() - t0:.3f} s")
+    return list(phase_device_scan(sources, datas, dev).values())
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    parser.add_argument("--phase", choices=("all", "device_scan"), default="all",
+                        help="run every phase (the default) or the device scan phase alone")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         sys.exit(2)
     phase_environment()
     phase_build()
     dev = torch.device("cuda")
+    if args.phase == "device_scan":
+        kernel_records = scan_phase_only(dev)
+    else:
+        kernel_records = run_all(dev)
+    print(json.dumps({"kernels": kernel_records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def run_all(dev):
+    """Every phase after the build, in order; returns the kernels' records."""
     records = phase_kernel(dev)
     record_k2 = phase_kernel_fdct(dev)
     sl = phase_slice(records["k1"], dev)
@@ -2184,12 +2318,8 @@ def main():
     log(f"K1 launches on the later paths: fancy {3 * N_IMAGES}, u16 {3 * N_IMAGES}, "
         f"stripes {stripe_launches}, full_step {step_records['k1']['launches']}; K2 on the "
         f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}")
-    print(json.dumps({"kernels": [*records.values(), record_k2, *box_records.values(),
-                                  *scan_records.values(), *step_records.values(),
-                                  record_k4]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return [*records.values(), record_k2, *box_records.values(), *scan_records.values(),
+            *step_records.values(), record_k4]
 
 
 if __name__ == "__main__":

@@ -13,10 +13,15 @@ reduced for thumbnails, one quant table per image of a batch), duplicate
 or fancy upsampling, colour conversion or the 16-bit writer, and the
 batched, streaming and stripe pipelines; for the encode, the K2 pad + box
 subsample + FDCT + quantize kernel (``csrc/fdct_quant.cu``) behind the RGB,
-gray and CMYK/YCCK encoders. Every device entry point takes an explicit
-``device`` (or a mesh, whose ranks each run on their own device); CPU
-tensors run the kernels' plain PyTorch versions, CUDA tensors the
-kernels. The host decode's ``xp`` takes a torch device where the JAX
+gray and CMYK/YCCK encoders. Every device entry point takes a
+``device`` (or a mesh, whose ranks each run on their own device) and runs
+on the card when given none: where the JAX package defaults to its
+default device, or, for the encoders, to the host (``xp=np``), the port
+takes ``ops._device.default_device()``, which raises without a card
+rather than fall back to the CPU. The encoders take ``xp`` too: ``np``
+for the host encoder, ``torch`` or a ``torch.device`` for the device
+encode. CPU tensors run the kernels' plain PyTorch versions, CUDA tensors
+the kernels. The host decode's ``xp`` takes a torch device where the JAX
 package takes ``jnp`` (``jtt.decode(data, xp=torch)`` on the card,
 ``xp=torch.device(...)`` on any): its ``planes`` then come from the K4
 butterfly IDCT kernel (``csrc/butterfly_idct.cu``), bit-equal to the

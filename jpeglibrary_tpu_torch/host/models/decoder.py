@@ -1,8 +1,11 @@
 """Top-level JPEG decoder.
 
-The port's copy of ``jpeglibrary_tpu/models/decoder.py``, without its
-JAX device branches (``DecodeResult.to_rgb8_device`` and its inputs):
-the port's counterpart is ``jpeglibrary_tpu_torch.models.decoder.to_rgb8_device``.
+The port's copy of ``jpeglibrary_tpu/models/decoder.py``, with its JAX
+device branches moved to the port's device modules:
+``DecodeResult.to_rgb8_device`` calls
+``jpeglibrary_tpu_torch.models.decoder.to_rgb8_device`` (on the card unless
+given a ``device``), and the ``xp`` of the decode takes ``torch`` or a
+``torch.device`` where the JAX package takes ``jnp``.
 
 API parity with the reference JpegDecoder
 (yigolden/JpegLibrary/src/JpegLibrary/JpegDecoder.cs:19-978:
@@ -307,6 +310,17 @@ class DecodeResult:
                 )
                 out[idx] = decode_stage.normalize_to_uint8(plane, self.precision)
         return out
+
+    def to_rgb8_device(self, *, device=None, sparse: bool = True,
+                       upsample: str = "duplicate", scale: float = 1.0):
+        """Planar ``[3, H', W']`` uint8 RGB tensor on ``device`` (the card
+        when None): ``jpeglibrary_tpu_torch.models.decoder.to_rgb8_device``
+        of this result, the port of the JAX method of the same name."""
+        from ...models.decoder import to_rgb8_device
+        from ...ops import _device
+
+        return to_rgb8_device(self, device=_device.resolve(device), sparse=sparse,
+                              upsample=upsample, scale=scale)
 
     def to_rgb8_scaled(self, scale, *, upsample: str = "duplicate") -> np.ndarray:
         """Scaled decode to [ceil(H*s), ceil(W*s), 3] uint8 RGB for

@@ -362,10 +362,14 @@ class JpegEncoder:
     # -- encode --
 
     def encode(self, xp=np) -> bytes:
-        # The JAX device branch (xp=jnp) is not in this copy: the device
-        # encode is jpeglibrary_tpu_torch.encode.
+        # The JAX device branch (xp=jnp) is the port's device encode:
+        # xp=torch (the card) or a torch.device runs
+        # jpeglibrary_tpu_torch.models.encoder.encode on a copy of this
+        # encoder; anything but numpy or those raises TypeError.
         if xp is not np:
-            raise JpegEncodeError("this host encoder runs on numpy only")
+            from ...models.encoder import encode as device_encode
+
+            return device_encode(self, xp=xp)
         if self.mesh is not None:
             from ...parallel.sharding import check_mesh
 

@@ -14,6 +14,14 @@ or arithmetic emission, which gives the bytes the JAX branch gives for
 the same planes. The inputs that the JAX package encodes on the host
 whatever ``xp`` is (coefficient planes, pull readers, streams) go to the
 port's host encoder, as they go to the JAX package's.
+
+Each entry point takes the JAX package's ``xp`` besides ``device``:
+``xp=np`` is the host encoder (the JAX default), ``xp=torch`` the card and
+a ``torch.device`` that device (``ops._device.encode_target``). With
+neither ``xp`` nor ``device`` the port encodes on the card, where the JAX
+package's default is the host: the port's entry points run on the card
+unless asked otherwise, and without a card they raise rather than fall
+back to the CPU.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from ..host.syntax.quantization import (
     standard_chrominance_table,
     standard_luminance_table,
 )
-from ..ops import _build, encode_stage
+from ..ops import _build, _device, encode_stage
 
 #: Inputs that ``JpegEncoder.encode`` encodes on the host whatever ``xp``
 #: is: streams and pull readers run its streaming encoders ahead of any
@@ -135,9 +143,11 @@ def emit(encoder: JpegEncoder, planes) -> bytes:
     return out.encode()
 
 
-def encode(encoder: JpegEncoder, *, device) -> bytes:
+def encode(encoder: JpegEncoder, *, device=None, xp=None) -> bytes:
     """JPEG bytes of a configured encoder, the sample transform on
-    ``device``: the port of ``JpegEncoder.encode(xp=jnp)``.
+    ``device``: the port of ``JpegEncoder.encode(xp=jnp)``. ``xp=np`` runs
+    the host encoder instead; with neither ``xp`` nor ``device``, the card
+    (``ops._device.encode_target``).
 
     Sample planes, RGB and CMYK/YCCK ink take the device stage (one K2
     launch per component). Coefficient planes, pull readers and streams
@@ -147,9 +157,10 @@ def encode(encoder: JpegEncoder, *, device) -> bytes:
     runs). With ``encoder.mesh`` set, the host half's optimize-coding
     statistics run over the mesh (``mesh_symbol_frequencies``), giving
     the same bytes."""
-    if takes_host_path(encoder):
+    target = _device.encode_target(xp, device)
+    if target is None or takes_host_path(encoder):
         return copy.copy(encoder).encode()
-    return emit(encoder, coefficient_planes(encoder, device=device))
+    return emit(encoder, coefficient_planes(encoder, device=target))
 
 
 def rgb_encoder(rgb: np.ndarray, quality: int = 75, *, subsampling: str = "420",
@@ -169,25 +180,27 @@ def rgb_encoder(rgb: np.ndarray, quality: int = 75, *, subsampling: str = "420",
     return encoder
 
 
-def encode_rgb(rgb: np.ndarray, quality: int = 75, *, device, subsampling: str = "420",
+def encode_rgb(rgb: np.ndarray, quality: int = 75, *, device=None, subsampling: str = "420",
                optimize_coding: bool = False, most_optimal_coding: bool = False,
-               restart_interval: int = 0, arithmetic: bool = False) -> bytes:
+               restart_interval: int = 0, arithmetic: bool = False, xp=None) -> bytes:
     """RGB [H, W, 3] uint8 -> JPEG bytes, as ``jpeglibrary_tpu.encode_rgb``
-    with the transform on ``device``."""
+    with the transform on ``device`` (or where ``xp`` says; the card when
+    neither is given, where the JAX package's default is the host)."""
     return encode(rgb_encoder(
         rgb, quality, subsampling=subsampling, optimize_coding=optimize_coding,
         most_optimal_coding=most_optimal_coding, restart_interval=restart_interval,
         arithmetic=arithmetic,
-    ), device=device)
+    ), device=device, xp=xp)
 
 
-def encode_gray(plane: np.ndarray, quality: int = 75, *, device,
+def encode_gray(plane: np.ndarray, quality: int = 75, *, device=None,
                 optimize_coding: bool = False, most_optimal_coding: bool = False,
                 precision: int = 8, restart_interval: int = 0,
-                arithmetic: bool = False) -> bytes:
+                arithmetic: bool = False, xp=None) -> bytes:
     """Grayscale [H, W] -> JPEG bytes, as ``jpeglibrary_tpu.encode_gray``
-    with the transform on ``device``: 8-bit (SOF0) or 12-bit samples in
-    [0, 4095] (SOF1, level shift 2048, built tables)."""
+    with the transform on ``device`` (or where ``xp`` says, as in
+    :func:`encode_rgb`): 8-bit (SOF0) or 12-bit samples in [0, 4095]
+    (SOF1, level shift 2048, built tables)."""
     encoder = JpegEncoder()
     encoder.most_optimal_coding = most_optimal_coding
     encoder.restart_interval = restart_interval
@@ -207,7 +220,7 @@ def encode_gray(plane: np.ndarray, quality: int = 75, *, device,
         encoder.set_huffman_table(False, 0, huffman_standard.ac_luminance())
     encoder.add_component(1, 0, 0, 0, 1, 1)
     encoder.set_input([plane])
-    return encode(encoder, device=device)
+    return encode(encoder, device=device, xp=xp)
 
 
 def cmyk_encoder(ink: np.ndarray, quality: int = 75, *, ycck: bool = False,
@@ -254,14 +267,14 @@ def cmyk_encoder(ink: np.ndarray, quality: int = 75, *, ycck: bool = False,
     return encoder
 
 
-def encode_cmyk(ink: np.ndarray, quality: int = 75, *, device, ycck: bool = False,
+def encode_cmyk(ink: np.ndarray, quality: int = 75, *, device=None, ycck: bool = False,
                 subsampling: str = "420", optimize_coding: bool = False,
-                restart_interval: int = 0) -> bytes:
+                restart_interval: int = 0, xp=None) -> bytes:
     """CMYK ink [H, W, 4] uint8 -> Adobe-tagged 4-component JPEG, as
-    ``jpeglibrary_tpu.encode_cmyk`` with the transform on ``device``:
-    the ink converted on the host (:func:`ink_planes`), then 4 K2
-    launches."""
+    ``jpeglibrary_tpu.encode_cmyk`` with the transform on ``device`` (or
+    where ``xp`` says, as in :func:`encode_rgb`): the ink converted on the
+    host (:func:`ink_planes`), then 4 K2 launches."""
     return encode(cmyk_encoder(
         ink, quality, ycck=ycck, subsampling=subsampling, optimize_coding=optimize_coding,
         restart_interval=restart_interval,
-    ), device=device)
+    ), device=device, xp=xp)

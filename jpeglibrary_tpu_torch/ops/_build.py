@@ -51,14 +51,28 @@ _K2_ARGS = [
     ctypes.c_int,                      # level_shift
     ctypes.c_void_p,                   # cudaStream_t
 ]
-_K3_ARGS = [
+_K3_SHAPE_ARGS = [
     ctypes.c_void_p, ctypes.c_int64,   # segments, row width
-    ctypes.c_int64,                    # n_segments
+    ctypes.c_int64, ctypes.c_int64,    # n_rows, n_sub
+    ctypes.c_int64,                    # sub_bits
     ctypes.c_void_p, ctypes.c_int,     # comp_of, blocks per MCU
     ctypes.c_int,                      # n_comps
+]
+_K3_SYNC_ARGS = _K3_SHAPE_ARGS + [
+    ctypes.c_void_p, ctypes.c_void_p,  # lookahead, maxcode
+    ctypes.c_void_p, ctypes.c_void_p,  # valoffset, values
+    ctypes.c_void_p, ctypes.c_void_p,  # starts, exits (two buffers)
+    ctypes.c_void_p, ctypes.c_void_p,  # n_blk, dsum
+    ctypes.c_void_p,                   # flag (device)
+    ctypes.POINTER(ctypes.c_int),      # rounds (host)
+    ctypes.c_void_p,                   # cudaStream_t
+]
+_K3_WRITE_ARGS = _K3_SHAPE_ARGS + [
     ctypes.c_void_p,                   # mcu_counts
     ctypes.c_void_p, ctypes.c_void_p,  # lookahead, maxcode
     ctypes.c_void_p, ctypes.c_void_p,  # valoffset, values
+    ctypes.c_void_p, ctypes.c_void_p,  # starts, block0
+    ctypes.c_void_p,                   # pred0
     ctypes.c_void_p, ctypes.c_int64,   # out, max_blocks
     ctypes.c_void_p,                   # cudaStream_t
 ]
@@ -74,7 +88,8 @@ _ENTRY_POINTS = {
     "jpx_dequant_idct_i16": _K1_ARGS,
     "jpx_fdct_quant_i32": _K2_ARGS,
     "jpx_fdct_quant_u8": _K2_ARGS,
-    "jpx_huffman_scan": _K3_ARGS,
+    "jpx_huffman_sync": _K3_SYNC_ARGS,
+    "jpx_huffman_write": _K3_WRITE_ARGS,
     "jpx_butterfly_idct_i16": _K4_ARGS,
     "jpx_butterfly_idct_i32": _K4_ARGS,
 }

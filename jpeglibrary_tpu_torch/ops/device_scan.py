@@ -9,14 +9,18 @@ symbol at a time, and writes dense zig-zag coefficients in segment-local
 MCU order (:func:`decode_segments_device`).
 
 On a CUDA device the walk is K3 (``kernels.huffman_scan``,
-``csrc/huffman_scan.cu``): one thread per segment with the tables in
-shared memory. The JAX package ran it as a ``lax.while_loop`` whose lanes
-are the segments; :func:`decode_segments_plain` is that loop written out
-in PyTorch over a lane dimension of S segments, a Python loop that runs
-until every lane is done. It is K3's plain version: the wrapper takes it
-for a CPU tensor, the tests hold it to the JAX loop, and ``chip_smoke.py``
-holds K3 to it on the card. Everything here is integer arithmetic, so K3,
-the plain version and the host scanner agree bit for bit.
+``csrc/huffman_scan.cu``): a self-synchronising subsequence decoder, one
+thread per subsequence of each row, with the tables in shared memory. The
+JAX package ran it as a ``lax.while_loop`` whose lanes are the segments;
+:func:`walk_lanes` is that loop's body written out in PyTorch over a lane
+dimension, a Python loop that runs until every lane is done, and
+:func:`decode_segments_plain` runs it with one lane per segment. That is
+K3's plain version: the wrapper takes it for a CPU tensor, the tests hold
+it to the JAX loop, and ``chip_smoke.py`` holds K3 to it on the card.
+:func:`decode_segments_split_plain` is the CPU model of K3's algorithm on
+the same lane step, lanes being subsequences. Everything here is integer
+arithmetic, so K3, the plain versions and the host scanner agree bit for
+bit.
 
 The semantics are the JAX loop's, for corrupt streams too: a byte read
 past a row's width reads the row's last byte (JAX clamps a gather); a
@@ -26,7 +30,7 @@ shift by an amount outside [0, 32) gives 0, or the sign for a right shift
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,26 +129,36 @@ def _sar(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, x >> n.clamp(0, 31), torch.where(x < 0, -1, 0).to(x.dtype))
 
 
-def decode_segments_plain(buf: torch.Tensor, comp_of: torch.Tensor,
-                          mcu_counts: torch.Tensor, lookahead: torch.Tensor,
-                          maxcode: torch.Tensor, valoffset: torch.Tensor,
-                          values: torch.Tensor, max_blocks: int) -> torch.Tensor:
-    """K3's plain version: the JAX ``while_loop`` body over S lanes, one
-    Huffman symbol per live lane and step, until every lane is done.
-    uint8 [S, W] segments -> int32 [S, max_blocks * 64] coefficients, on
-    ``buf``'s device. Each step is some 60 small ops and a host sync, so
-    this is a yardstick of correctness, not of speed."""
+def walk_lanes(buf: torch.Tensor, lane_row: torch.Tensor, bit: torch.Tensor, k: torch.Tensor,
+               block: torch.Tensor, preds: torch.Tensor, comp_of: torch.Tensor,
+               lookahead: torch.Tensor, maxcode: torch.Tensor, valoffset: torch.Tensor,
+               values: torch.Tensor, *, end_bit: Optional[torch.Tensor] = None,
+               budget: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None,
+               max_blocks: int = 1):
+    """The JAX ``while_loop`` body over N lanes, each walking a row of
+    ``buf`` (uint8 [S, W]) one Huffman symbol per step: K3's step, the one
+    every plain decode here runs.
+
+    Lane i walks row ``lane_row[i]`` from the code boundary (``bit[i]``,
+    ``k[i]``, ``block[i]``): its bit position, zig-zag index and block
+    index, whose ``block % bpm`` picks the component; ``preds[i]`` (int32
+    [N, components]) are its DC predictors there. A lane steps while its
+    bit is below ``end_bit[i]`` (no limit when None) and its block below
+    ``budget[i]`` (no limit when None). With ``out`` (a flat int32 [S *
+    max_blocks * 64]) each emission is added there, at the lane's row,
+    block (clamped to ``max_blocks - 1``) and zig-zag index, as JAX's
+    ``.at[].add``. Returns the exit states (bit, k, block, preds), new
+    tensors (int64, int64, int64, int32)."""
     dev = buf.device
     i32 = torch.int32
-    s_count, width = buf.shape
-    n_comps = lookahead.shape[0] // 2
+    width = buf.shape[1]
+    n_lanes = lane_row.shape[0]
     bpm = comp_of.shape[0]
-    lane = torch.arange(s_count, device=dev)
-    row = lane.to(torch.int64) * width
-    out_row = lane.to(torch.int64) * (max_blocks * 64)
+    lane = torch.arange(n_lanes, device=dev)
+    row = lane_row.to(torch.int64) * width
+    out_row = lane_row.to(torch.int64) * (max_blocks * 64)
     flat = buf.reshape(-1)
     comp_of = comp_of.to(torch.int64)
-    blocks_total = mcu_counts.to(torch.int64) * bpm
     lookahead, values = lookahead.reshape(-1), values.reshape(-1)
     maxcode, valoffset = maxcode.to(i32), valoffset.reshape(-1)
 
@@ -167,14 +181,19 @@ def decode_segments_plain(buf: torch.Tensor, comp_of: torch.Tensor,
         vt = torch.where(t > 0, _shl(one, torch.clamp(t - 1, min=0)), 0)
         return torch.where(v < vt, v - _shl(one, torch.clamp(t, min=1)) + 1, v)
 
-    bit = torch.zeros(s_count, dtype=torch.int64, device=dev)
-    block = torch.zeros(s_count, dtype=torch.int64, device=dev)
-    k = torch.zeros(s_count, dtype=torch.int64, device=dev)
-    preds = torch.zeros(s_count, max(n_comps, 1), dtype=i32, device=dev)
-    out = torch.zeros(s_count * max_blocks * 64, dtype=i32, device=dev)
-    while bool((block < blocks_total).any()):
-        live = block < blocks_total
-        comp = comp_of[torch.minimum(block, blocks_total - 1) % bpm]
+    def live_lanes(bit, block):
+        live = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+        if end_bit is not None:
+            live &= bit < end_bit
+        if budget is not None:
+            live &= block < budget
+        return live
+
+    bit, k, block = bit.to(torch.int64), k.to(torch.int64), block.to(torch.int64)
+    preds = preds.to(i32).clone()
+    live = live_lanes(bit, block)
+    while bool(live.any()):
+        comp = comp_of[block % bpm]
         is_dc = k == 0
         tbl = 2 * comp + torch.where(is_dc, 0, 1)
 
@@ -207,12 +226,13 @@ def decode_segments_plain(buf: torch.Tensor, comp_of: torch.Tensor,
         zrl = (s_ac == 0) & (r != 0)
         k_next_ac = torch.where(eob, 64, torch.where(zrl, k + 16, k_emit + 1))
 
-        # One add per lane into the zeroed output, as JAX's .at[].add.
-        base = torch.clamp(block, max=max_blocks - 1) * 64
-        pos = torch.where(is_dc, base, base + k_emit)
-        val = torch.where(is_dc, pred, torch.where(s_ac > 0, ac_val, 0))
-        emit = live & (is_dc | (s_ac > 0))
-        out.index_add_(0, out_row + pos, torch.where(emit, val, 0))
+        if out is not None:
+            # One add per lane into the zeroed output, as JAX's .at[].add.
+            base = torch.clamp(block, max=max_blocks - 1) * 64
+            pos = torch.where(is_dc, base, base + k_emit)
+            val = torch.where(is_dc, pred, torch.where(s_ac > 0, ac_val, 0))
+            emit = live & (is_dc | (s_ac > 0))
+            out.index_add_(0, out_row + pos, torch.where(emit, val, 0))
 
         bit = torch.where(live, torch.where(is_dc, bit_dc, bit_ac), bit)
         new_k = torch.where(live, torch.where(is_dc, 1, k_next_ac), k)
@@ -220,7 +240,135 @@ def decode_segments_plain(buf: torch.Tensor, comp_of: torch.Tensor,
         adv = new_k >= 64
         block = torch.where(live & adv, block + 1, block)
         k = torch.where(adv, 0, new_k)
+        live = live_lanes(bit, block)
+    return bit, k, block, preds
+
+
+def decode_segments_plain(buf: torch.Tensor, comp_of: torch.Tensor,
+                          mcu_counts: torch.Tensor, lookahead: torch.Tensor,
+                          maxcode: torch.Tensor, valoffset: torch.Tensor,
+                          values: torch.Tensor, max_blocks: int) -> torch.Tensor:
+    """K3's plain version: the JAX ``while_loop`` over S lanes, one per
+    segment, each from the row's start with predictors 0 until its block
+    budget (:func:`walk_lanes`). uint8 [S, W] segments -> int32 [S,
+    max_blocks * 64] coefficients, on ``buf``'s device. Each step is some
+    60 small ops and a host sync, so this is a yardstick of correctness,
+    not of speed."""
+    dev = buf.device
+    s_count = buf.shape[0]
+    n_comps = lookahead.shape[0] // 2
+    zeros = torch.zeros(s_count, dtype=torch.int64, device=dev)
+    out = torch.zeros(s_count * max_blocks * 64, dtype=torch.int32, device=dev)
+    walk_lanes(buf, torch.arange(s_count, device=dev), zeros, zeros, zeros,
+               torch.zeros(s_count, max(n_comps, 1), dtype=torch.int32, device=dev),
+               comp_of, lookahead, maxcode, valoffset, values,
+               budget=mcu_counts.to(torch.int64) * comp_of.shape[0], out=out,
+               max_blocks=max_blocks)
     return out.view(s_count, max_blocks * 64)
+
+
+def subsequence_count(width: int, sub_bits: int) -> int:
+    """The subsequences of ``sub_bits`` bits that cover a row of ``width``
+    bytes: ceil(8 * width / sub_bits)."""
+    return -(-8 * width // sub_bits)
+
+
+def subsequence_offsets(n_blk: torch.Tensor, dsum: torch.Tensor):
+    """The write pass's offsets: exclusive prefix sums along each row of
+    the blocks each subsequence completes (int64 [S, n_sub] -> the block
+    index at each subsequence's start) and of its DC differences (int32
+    [S, n_sub, components] -> the predictors there, the low 32 bits, which
+    wrap as the JAX loop's int32 adds do)."""
+    block0 = torch.cumsum(n_blk, dim=1) - n_blk
+    d = dsum.to(torch.int64)
+    p = torch.cumsum(d, dim=1) - d
+    pred0 = ((p + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    return block0, pred0.to(torch.int32)
+
+
+def decode_segments_split_plain(buf: torch.Tensor, comp_of: torch.Tensor,
+                                mcu_counts: torch.Tensor, lookahead: torch.Tensor,
+                                maxcode: torch.Tensor, valoffset: torch.Tensor,
+                                values: torch.Tensor, max_blocks: int, sub_bits: int):
+    """The CPU model of K3's subsequence decoder, on :func:`walk_lanes`:
+    the same output as :func:`decode_segments_plain`, and the number of
+    sync rounds it took, ``(int32 [S, max_blocks * 64], rounds)``.
+
+    Each row is cut into ``n_sub`` subsequences of ``sub_bits`` bits;
+    subsequence j owns the symbols whose first bit lies in [j * sub_bits,
+    (j + 1) * sub_bits), the last one everything after up to the row's
+    block budget. A decoder state at a code boundary is (bit, k, m), m the
+    block's index within its MCU.
+
+    1. Sync rounds over every subsequence but the last of each row. Round
+       0 decodes each from a guess, (j * sub_bits, 0, 0), the first from
+       the exact (0, 0, 0); a later round re-decodes each whose start
+       differs from the exit of the one before it in the previous round,
+       from that exit. Each decode records its exit, the blocks it
+       completed and the sum of its DC differences per component, and
+       stores nothing. The rounds stop when no start changed. After
+       round r subsequences 0..r start exactly, so the fixed point is the
+       sequential walk's states, for any stream, corrupt ones too, in at
+       most n_sub rounds. A start at or past its subsequence's end decodes
+       nothing and exits where it starts.
+    2. Offsets: :func:`subsequence_offsets`.
+    3. Write pass: every subsequence from its exact start, block index and
+       predictors, while its bit is in its range and its block below the
+       row's budget, adds its emissions into the zeroed output."""
+    dev = buf.device
+    s_count, width = buf.shape
+    n_comps = max(lookahead.shape[0] // 2, 1)
+    bpm = comp_of.shape[0]
+    n_sub = subsequence_count(width, sub_bits)
+    tables = (comp_of, lookahead, maxcode, valoffset, values)
+    rows = torch.arange(s_count, device=dev)[:, None].expand(s_count, n_sub)
+    cols = torch.arange(n_sub, device=dev)[None, :].expand(s_count, n_sub)
+    start = [cols * sub_bits, torch.zeros_like(cols), torch.zeros_like(cols)]  # bit, k, m
+    exit_ = [t.clone() for t in start]
+    n_blk = torch.zeros(s_count, n_sub, dtype=torch.int64, device=dev)
+    dsum = torch.zeros(s_count, n_sub, n_comps, dtype=torch.int32, device=dev)
+
+    def sync(mask):
+        """Decode the subsequences of ``mask`` [S, n_sub] from their starts
+        to their ends, recording exit, blocks and DC sums."""
+        r, j = rows[mask], cols[mask]
+        m0 = start[2][mask]
+        bit, k, block, d = walk_lanes(
+            buf, r, start[0][mask], start[1][mask], m0,
+            torch.zeros(r.shape[0], n_comps, dtype=torch.int32, device=dev), *tables,
+            end_bit=(j + 1) * sub_bits)
+        exit_[0][mask], exit_[1][mask], exit_[2][mask] = bit, k, block % bpm
+        n_blk[mask] = block - m0
+        dsum[mask] = d
+
+    rounds = 0
+    if n_sub > 1:
+        sync(cols < n_sub - 1)
+        rounds = 1
+        while True:
+            if rounds >= n_sub:
+                raise RuntimeError(f"the sync rounds did not settle in {n_sub} rounds")
+            prev = [torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1) for t in exit_]
+            changed = (cols >= 1) & (cols < n_sub - 1)
+            changed &= (prev[0] != start[0]) | (prev[1] != start[1]) | (prev[2] != start[2])
+            rounds += 1
+            if not bool(changed.any()):
+                break
+            for s, p in zip(start, prev):
+                s[changed] = p[changed]
+            sync(changed)
+        for s, e in zip(start, exit_):  # the last subsequence starts where the one before exits
+            s[:, -1] = e[:, -2]
+
+    block0, pred0 = subsequence_offsets(n_blk, dsum)
+    out = torch.zeros(s_count * max_blocks * 64, dtype=torch.int32, device=dev)
+    end = torch.where(cols < n_sub - 1, (cols + 1) * sub_bits, torch.iinfo(torch.int64).max)
+    walk_lanes(buf, rows.reshape(-1), start[0].reshape(-1), start[1].reshape(-1),
+               block0.reshape(-1), pred0.reshape(-1, n_comps), *tables,
+               end_bit=end.reshape(-1),
+               budget=(mcu_counts.to(torch.int64) * bpm).repeat_interleave(n_sub),
+               out=out, max_blocks=max_blocks)
+    return out.view(s_count, max_blocks * 64), rounds
 
 
 def decode_segments_device(buf, const, *, device) -> torch.Tensor:
@@ -228,7 +376,8 @@ def decode_segments_device(buf, const, *, device) -> torch.Tensor:
     max_blocks * 64] zig-zag coefficients in segment-local MCU order, on
     ``device``. ``buf`` and the constants are :func:`prepare_scan`'s (numpy
     arrays or tensors); they are copied to ``device`` if they are not
-    there. On a CUDA device this is one K3 launch."""
+    there. On a CUDA device this is one K3 call (its sync rounds and its
+    write pass)."""
     device = torch.device(device)
     lookahead, maxcode, valoffset, values = const["tables"]
     max_blocks = int(np.asarray(const["mcu_counts"]).max()) * const["bpm"]

@@ -33,17 +33,19 @@ tensor cores with an exact bf16 split of F (:func:`fdct_split`), and
 takes the plain version (``encode_stage`` pad, subsample, fdct_quantize)
 only for a CPU tensor.
 
-K3, the entropy decode: the baseline Huffman decode of restart segments,
-one symbol at a time per segment, into dense zig-zag coefficients. Port
-of ``jpeglibrary_tpu/ops/device_scan.py:121-245`` ``_compiled_decoder``,
-an XLA ``while_loop`` (not Pallas) whose lanes were the segments.
-:func:`huffman_scan` launches ``csrc/huffman_scan.cu`` on CUDA tensors,
-one thread per segment, and takes the plain version
-(``device_scan.decode_segments_plain``) only for CPU tensors. Its bound
-on the card is not bytes: each symbol is a chain of dependent steps
-(a table lookup, the value bits, the next bit position), so the segment
-with the most symbols sets its time; more and shorter segments spread
-the chains over more threads.
+K3, the entropy decode: the baseline Huffman decode of restart segments
+into dense zig-zag coefficients. Port of
+``jpeglibrary_tpu/ops/device_scan.py:121-245`` ``_compiled_decoder``, an
+XLA ``while_loop`` (not Pallas) whose lanes were the segments.
+:func:`huffman_scan` runs ``csrc/huffman_scan.cu`` on CUDA tensors, a
+self-synchronising subsequence decoder (one thread per subsequence of
+``HUFFMAN_SUB_BITS`` bits: sync rounds until every subsequence starts
+where the one before it ends, then a write pass), and takes the plain
+version (``device_scan.decode_segments_plain``) only for CPU tensors.
+Its bound on the card is not bytes: each symbol is a chain of dependent
+steps (a table lookup, the value bits, the next bit position), so a pass
+costs the symbols of the longest subsequence, and the subsequences spread
+even a stream without restart markers over thousands of threads.
 
 K4, the bit-exact decode transform of one component plane: dequantize +
 un-zigzag + the float32 AAN butterfly IDCT + rint + level shift, with
@@ -62,6 +64,7 @@ only for a CPU tensor.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
 from typing import Optional, Tuple
@@ -282,9 +285,15 @@ SCAN_MAX_COMPS = 4  # components in one scan (T.81 B.2.3)
 SCAN_MAX_BPM = 10  # blocks in one MCU (T.81 B.2.3)
 
 
+#: K3's subsequence length in bits: the fastest of 512, 1,024 and 2,048 on
+#: an H100 (PERF.md).
+HUFFMAN_SUB_BITS = 2048
+
+
 def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Tensor,
                  lookahead: torch.Tensor, maxcode: torch.Tensor, valoffset: torch.Tensor,
-                 values: torch.Tensor, *, max_blocks: int) -> torch.Tensor:
+                 values: torch.Tensor, *, max_blocks: int,
+                 sub_bits: int = HUFFMAN_SUB_BITS) -> torch.Tensor:
     """uint8 [S, W] unstuffed, 0xFF-padded restart segments -> int32
     [S, max_blocks * 64] zig-zag coefficients, each segment's blocks in
     MCU order from its row's start and zeros after them.
@@ -297,9 +306,16 @@ def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Ten
     segment.
 
     On CPU tensors it runs the plain version
-    (``device_scan.decode_segments_plain``); on CUDA tensors it launches
-    ``csrc/huffman_scan.cu`` into a zeroed output, or raises.
-    ``huffman_scan.launches`` counts the kernel's launches."""
+    (``device_scan.decode_segments_plain``). On CUDA tensors it runs
+    ``csrc/huffman_scan.cu``, the subsequence decoder, or raises: each row
+    cut into subsequences of ``sub_bits`` bits, the sync rounds
+    (``jpx_huffman_sync``, which reads a 4-byte flag after each round and
+    so synchronises the stream), the offsets (``device_scan.
+    subsequence_offsets``) and the write pass into a zeroed output
+    (``jpx_huffman_write``); ``device_scan.decode_segments_split_plain`` is
+    its CPU model. ``huffman_scan.launches`` counts the calls that ran the
+    kernels, ``huffman_scan.rounds`` holds the last such call's sync
+    rounds."""
     tables = (lookahead, maxcode, valoffset, values)
     if buf.dtype != torch.uint8 or buf.dim() != 2 or buf.shape[1] < 1:
         raise ValueError(f"segments must be uint8 [S, W], got {buf.dtype} {tuple(buf.shape)}")
@@ -321,6 +337,8 @@ def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Ten
                          f"{tuple(mcu_counts.shape)}")
     if max_blocks < 1:
         raise ValueError(f"max_blocks must be at least 1, got {max_blocks}")
+    if sub_bits < 8:
+        raise ValueError(f"sub_bits must be at least 8, got {sub_bits}")
     device = buf.device
     for t in (comp_of, mcu_counts, *tables):
         if t.device != device:
@@ -335,21 +353,46 @@ def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Ten
     out = torch.zeros((n_segs, max_blocks * 64), dtype=torch.int32, device=device)
     if n_segs == 0:
         return out
+    n_comps = n_tables // 2
+    n_sub = device_scan.subsequence_count(buf.shape[1], sub_bits)
+    total = n_segs * n_sub
+
+    def scratch(dtype, n):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    starts, exits = scratch(torch.int64, total), scratch(torch.int64, 2 * total)
+    n_blk, dsum = scratch(torch.int64, total), scratch(torch.int32, total * n_comps)
+    flag = scratch(torch.int32, 1)
+    rounds = ctypes.c_int(0)
+    shape = (buf.data_ptr(), buf.shape[1], n_segs, n_sub, sub_bits, comp_of.data_ptr(),
+             comp_of.shape[0], n_comps)
     lib = _build.load_library()
     with torch.cuda.device(device):
-        err = lib.jpx_huffman_scan(
-            buf.data_ptr(), buf.shape[1], n_segs, comp_of.data_ptr(), comp_of.shape[0],
-            n_tables // 2, mcu_counts.data_ptr(), *(t.data_ptr() for t in tables),
-            out.data_ptr(), max_blocks, torch.cuda.current_stream(device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.jpx_huffman_sync(*shape, *(t.data_ptr() for t in tables), starts.data_ptr(),
+                                   exits.data_ptr(), n_blk.data_ptr(), dsum.data_ptr(),
+                                   flag.data_ptr(), ctypes.byref(rounds), stream)
+        if err == -1:
+            raise RuntimeError(f"K3's sync rounds did not settle in {n_sub} rounds")
+        if err != 0:
+            raise RuntimeError(f"K3 sync launch failed: CUDA error {err}")
+        block0, pred0 = device_scan.subsequence_offsets(n_blk.view(n_segs, n_sub),
+                                                        dsum.view(n_segs, n_sub, n_comps))
+        block0, pred0 = block0.contiguous(), pred0.contiguous()
+        err = lib.jpx_huffman_write(*shape, mcu_counts.data_ptr(),
+                                    *(t.data_ptr() for t in tables), starts.data_ptr(),
+                                    block0.data_ptr(), pred0.data_ptr(), out.data_ptr(),
+                                    max_blocks, stream)
     if err != 0:
-        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+        raise RuntimeError(f"K3 write launch failed: CUDA error {err}")
     with _COUNT_LOCK:
         huffman_scan.launches += 1
+        huffman_scan.rounds = rounds.value
     return out
 
 
 huffman_scan.launches = 0
+huffman_scan.rounds = 0
 
 
 def butterfly_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,

@@ -32,7 +32,7 @@ from ..host.parallel.batch import (
 )
 from ..models.decoder import delta_payload, scale_n_of, to_rgb8_device
 from ..models.encoder import encode_rgb
-from ..ops import _build
+from ..ops import _build, _device
 from ..ops.pipeline import transform_delta, transform_mcu, transform_mcu2
 from . import collectives
 from .sharding import device_or_mesh
@@ -94,8 +94,10 @@ def decode_batch_rgb(datas: Sequence[bytes], *, device=None, mesh=None,
     With a ``mesh`` (``sharding.make_mesh``; every rank calls with the same
     ``datas``) each group's stacked wire splits over ``data``, padded to a
     multiple of its size, each rank transforms its share on its device,
-    and a gather gives every rank the whole list. Exactly one of ``device``
-    and ``mesh`` is given."""
+    and a gather gives every rank the whole list. At most one of ``device``
+    and ``mesh`` is given; with neither, the card (``ops._device``)."""
+    if device is None and mesh is None:
+        device = _device.default_device()
     device = device_or_mesh(device, mesh, "decode_batch_rgb")
     scale_n = scale_n_of(scale)
     _build.load_scanner()
@@ -154,10 +156,11 @@ def _transform_over_data(transform, stacked: np.ndarray, quants: np.ndarray, geo
     return torch.cat(collectives.all_gather(local, mesh.get_group("data")))[:b]
 
 
-def decode_stream_rgb(datas, *, device, depth: int = 4, scan_workers: int = 2,
+def decode_stream_rgb(datas, *, device=None, depth: int = 4, scan_workers: int = 2,
                       device_workers: int = 1, group: int = 1, scale: float = 1.0):
-    """Yield planar ``[3, H', W']`` uint8 RGB tensors on ``device``, in
-    input order, while ``scan_workers`` host threads scan ahead.
+    """Yield planar ``[3, H', W']`` uint8 RGB tensors on ``device`` (the
+    card when None), in input order, while ``scan_workers`` host threads
+    scan ahead.
 
     ``device_workers`` threads upload and transform; each enqueues on the
     CUDA stream current in its thread and waits for that work before it
@@ -172,8 +175,8 @@ def decode_stream_rgb(datas, *, device, depth: int = 4, scan_workers: int = 2,
     (or its build fails) before the first image, so no image falls back
     to the Python scanner."""
     scale_n = scale_n_of(scale)
+    device = _device.resolve(device)
     _build.load_scanner()
-    device = torch.device(device)
 
     def one_rgb(res):
         if res.samples is not None:
@@ -221,15 +224,18 @@ def decode_stream_rgb(datas, *, device, depth: int = 4, scan_workers: int = 2,
             yield from inflight.popleft().result()
 
 
-def encode_batch_rgb(rgbs: Sequence[np.ndarray], quality: int = 75, *, device,
-                     max_workers: Optional[int] = None, **encode_kwargs) -> List[bytes]:
+def encode_batch_rgb(rgbs: Sequence[np.ndarray], quality: int = 75, *, device=None,
+                     xp=None, max_workers: Optional[int] = None,
+                     **encode_kwargs) -> List[bytes]:
     """Encode a batch of RGB images, in input order: the port of
     ``jpeglibrary_tpu.encode_batch_rgb``. Each image is one
-    ``encode_rgb(rgb, quality, device=device, **encode_kwargs)`` (3 K2
-    launches), the images spread over the shared thread pool (or a pool
-    of ``max_workers``); an image's failure raises from its position."""
+    ``encode_rgb(rgb, quality, device=device, xp=xp, **encode_kwargs)`` (3
+    K2 launches on a device; ``xp=np`` is the host encoder, and with
+    neither ``xp`` nor ``device`` the card), the images spread over the
+    shared thread pool (or a pool of ``max_workers``); an image's failure
+    raises from its position."""
     def one(rgb: np.ndarray) -> bytes:
-        return encode_rgb(rgb, quality, device=device, **encode_kwargs)
+        return encode_rgb(rgb, quality, device=device, xp=xp, **encode_kwargs)
 
     items = list(rgbs)
     if len(items) <= 1:

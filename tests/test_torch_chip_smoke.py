@@ -286,19 +286,25 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     datas = [smoke.encode_420(rgb, 75) for rgb in sources]
     scan = smoke.phase_device_scan(sources, datas, torch.device("cpu"))
     step = smoke.phase_full_step(smoke.step_inputs(datas), torch.device("cpu"))
-    assert sorted(scan) == [0, 1, 2]
+    assert set(scan) == {0, 1, 2, "small"}
     assert [r["name"] for r in step.values()] == ["dequantize_idct_shift[full_step]",
                                                   "fdct_quantize[full_step]"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert scan[0]["plain_ms"] is None and scan[0]["max_abs_err"] is None  # no plain run
-    for rec in [scan[1], scan[2], *step.values()]:
+    for rec in [scan[1], scan[2], scan["small"], *step.values()]:
         assert rec["max_abs_err"] == 0 and rec["plain_ms"] > 0
     for rec in [*scan.values(), *step.values()]:
         assert set(rec) == keys and rec["launches"] == 0 and rec["bound_ms"] > 0
         assert (ROOT / rec["source"]).is_file()
-    assert failed == [(2, "K3 launches", 0), (1, "K3 launches", 0), (0, "K3 launches", 0),
-                      ("full_step launches", 0, 0)]
+    # The CPU model's sync rounds are held to K3's, which the plain version
+    # (the wrapper on the CPU) does not count.
+    assert failed[:4] == [(2, "K3 launches", 0), (1, "K3 launches", 0), (0, "K3 launches", 0),
+                          ("small ri 0: K3 launches", 0)]
+    assert [f[0] for f in failed[4:6]] == ["small ri 0: K3 differs from its CPU model",
+                                           "small ri 0, corrupt: K3 differs from its CPU model"]
+    assert all(f[1] >= 2 and f[2] == 0 for f in failed[4:6])  # (model rounds, K3 rounds)
+    assert failed[6:] == [("full_step launches", 0, 0)]
 
 
 @pytest.mark.parametrize("n_blocks,itemsize,want_us", [

@@ -253,7 +253,7 @@ def test_host_encoder_raises_for_jax_branches():
 
     enc = host_encoder._configure_rgb_encoder(75, "420")
     enc.set_input_rgb(_image(16, 16, 41))
-    with pytest.raises(jtt.JpegEncodeError, match="numpy"):
+    with pytest.raises(TypeError, match="numpy"):  # xp takes numpy or torch, never jnp
         enc.encode(xp=jnp)
     enc.mesh = object()
     with pytest.raises(jtt.JpegEncodeError, match="mesh"):

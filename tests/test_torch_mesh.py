@@ -205,11 +205,17 @@ def test_make_mesh_raises_without_a_group():
 
 
 @pytest.mark.parametrize("entry", ["decode_batch_rgb", "batched_transform_rgb"])
-def test_entry_points_raise_without_device_or_mesh(entry):
-    with pytest.raises(ValueError, match="device or a mesh"):
-        if entry == "decode_batch_rgb":
-            jtt.decode_batch_rgb([jtt.encode_rgb(_image(16, 16, 1), 75, device="cpu")])
-        else:
+def test_entry_points_raise_without_device_or_mesh(entry, monkeypatch):
+    """``batched_transform_rgb`` needs one of the two. ``decode_batch_rgb``
+    takes the card then, as the JAX package takes its default device, and
+    without a card it raises, naming ``device="cpu"``: no CPU fallback."""
+    if entry == "decode_batch_rgb":
+        data = jtt.encode_rgb(_image(16, 16, 1), 75, device="cpu")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            jtt.decode_batch_rgb([data])
+    else:
+        with pytest.raises(ValueError, match="device or a mesh"):
             coeffs, quants, geometry, _ = _batch_inputs()
             sharding.batched_transform_rgb(coeffs, quants, geometry)
 
