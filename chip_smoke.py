@@ -50,6 +50,17 @@ layer in spawned ranks. In order:
    contract of the CPU path and equal to the card's single-image output;
    batch MP/s, stream MP/s at group 1, 2, 4 and 8, and the transform's
    host time per image in a group of 8;
+5b. overlap: the stream's device workers, each on its own CUDA stream
+   with a pinned staging buffer: the 8 images at ``device_workers`` 1 and
+   2, at group 1 and 8, every output equal to the card's single-image
+   output, K1 launched 3 times per group; MP/s of each setting (the two
+   worker counts in turns); then, under ``torch.profiler``, a stream built
+   to overlap (8 scan threads, group 1, 2 workers): every HtoD copy of the
+   path Pinned -> Device, the path's kernels and copies on at least two
+   streams and none on the caller's, and in at least one of
+   OVERLAP_TRACES runs a copy of one worker under a kernel of the other;
+   with the wire bytes per image and per group of 8, the copies' time and
+   the part of it that overlapped;
 6. wires: 4 of the images encoded on the card with arithmetic coding,
    which the fused scan declines, through the v1 plane-order wire; and
    the 8 under ``JPX_WIRE=1`` through the v1 MCU wire, grouped; each
@@ -1282,6 +1293,151 @@ def phase_batch(records, sl, dev):
         f"{one_ms:.6f} ms (host clock to a synchronised result, median of {TIMED_RUNS})")
 
 
+OVERLAP_GROUPS = (1, 8)
+OVERLAP_WORKERS = (1, 2)
+OVERLAP_TRACES = 8  # traced runs of the stream built to overlap; a copy lands under the
+# other worker's kernels in some (on an H100 one run in three had none: the
+# transform's ops reach the card sparsely while 8 scan threads hold the host)
+MARK_CYCLES = 100_000  # the spin kernels that mark the caller's stream in a trace
+
+
+def device_trace(fn):
+    """The device events (kernels, copies, fills) of ``fn()`` under
+    ``torch.profiler``, from its Chrome trace. A spin kernel on the calling
+    thread's stream before and one after mark that stream: the path never
+    spins, and CUPTI may drop either record (it dropped a session's first
+    records on the H100 after the earlier phases' sessions)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(MARK_CYCLES)
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def covered(spans, start, end):
+    """The time within [start, end] that the union of ``spans`` covers."""
+    total, at = 0.0, start
+    for lo, hi in sorted(spans):
+        lo, hi = max(lo, at), min(hi, end)
+        if hi > lo:
+            total += hi - lo
+            at = hi
+    return total
+
+
+def overlap_stats(events):
+    """What a traced stream run shows: the caller's stream (the marking
+    spin kernels'), the other streams the path's kernels and copies ran
+    on, how many ran on the caller's, the HtoD copies and those not from
+    pinned memory, the copies' time and the part of it during which a
+    kernel ran on another of the path's streams, and the time some kernel
+    of the path ran within the path's span (microseconds, each instant
+    counted once)."""
+    def stream_of(e):
+        return e.get("args", {}).get("stream", e.get("tid"))
+
+    marks = [e for e in events if "spin_kernel" in e["name"]]
+    caller = stream_of(marks[0]) if marks else None
+    path = [e for e in events if "spin_kernel" not in e["name"]]
+    kernels = [(stream_of(e), e["ts"], e["ts"] + e["dur"]) for e in path if e["cat"] == "kernel"]
+    copies = [e for e in path if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    overlap = sum(covered([(k0, k1) for ks, k0, k1 in kernels if ks not in (stream_of(c), caller)],
+                          c["ts"], c["ts"] + c["dur"]) for c in copies)
+    start = min((e["ts"] for e in path), default=0.0)
+    end = max((e["ts"] + e["dur"] for e in path), default=0.0)
+    return {"marks": len(marks), "caller": caller,
+            "streams": sorted({stream_of(e) for e in path} - {caller}),
+            "on_caller": sum(stream_of(e) == caller for e in path),
+            "htod": len(copies),
+            "pageable": sorted({c["name"] for c in copies if "Pinned" not in c["name"]}),
+            "copy_us": float(sum(c["dur"] for c in copies)), "overlap_us": overlap,
+            "busy_us": covered([(k0, k1) for _, k0, k1 in kernels], start, end),
+            "span_us": end - start}
+
+
+def phase_overlap(sl, dev):
+    """The stream's device workers (``device_workers``), each on its own
+    CUDA stream with a pinned staging buffer: outputs and launches at 1
+    and 2 workers, group 1 and 8; MP/s in turns; then the profiler's view
+    of a stream built to overlap. Returns the MP/s by (group, workers)."""
+    from jpeglibrary_tpu_torch.models.decoder import quant_tables
+    from jpeglibrary_tpu_torch.ops import kernels
+    from jpeglibrary_tpu_torch.parallel.batch import group_wire, scan
+
+    datas, singles = sl["datas"], sl["outs"]
+    mp = len(datas) * SIZE * SIZE / 1e6
+    results = [scan(d) for d in datas]
+    per_image = [r.packed_mcu2.nbytes + quant_tables(r).nbytes for r in results]
+    _, stacked, quants = group_wire(results, results[0].geometry)
+    log(f"overlap: wire bytes per image (v2 payload and quant tables): "
+        f"{', '.join(map(str, per_image))}; group of {len(datas)}: "
+        f"{stacked.nbytes + quants.nbytes}")
+
+    for g in OVERLAP_GROUPS:
+        for w in OVERLAP_WORKERS:
+            reset_counts()
+            outs = stream(datas, dev, group=g, device_workers=w)
+            launches = kernels.dequantize_idct_shift.launches
+            want = 3 * -(-len(datas) // g)
+            log(f"overlap: group={g} device_workers={w}: K1 launches {launches} (want {want})")
+            check(launches == want, ("overlap K1 launches", g, w, launches))
+            check(len(outs) == len(singles) and all(
+                o.device.type == dev.type and torch.equal(o, s) for o, s in zip(outs, singles)),
+                ("overlap: an output differs from the card's single-image output", g, w))
+    log(f"overlap: every output at device_workers {OVERLAP_WORKERS}, group {OVERLAP_GROUPS} "
+        "equals the card's single-image output")
+
+    rates = {}
+    for g in OVERLAP_GROUPS:
+        secs = {w: [] for w in OVERLAP_WORKERS}
+        for w in OVERLAP_WORKERS:
+            stream(datas, dev, group=g, device_workers=w)
+        for _ in range(STREAM_RUNS):
+            for w in OVERLAP_WORKERS:
+                secs[w].append(timed(lambda: stream(datas, dev, group=g, device_workers=w))[1])
+        for w in OVERLAP_WORKERS:
+            med = statistics.median(secs[w])
+            rates[(g, w)] = mp / med
+            log(f"overlap: stream group={g} device_workers={w}: median {med:.6f} s of "
+                f"{STREAM_RUNS} warm runs in turns, {rates[(g, w)]:.3f} MP/s end to end "
+                f"(runs: {', '.join(f'{x:.6f}' for x in secs[w])} s)")
+
+    def overlapped():
+        return stream(datas, dev, group=1, device_workers=2, scan_workers=len(datas))
+
+    overlapped()
+    traces = []
+    for i in range(OVERLAP_TRACES):
+        st = overlap_stats(device_trace(overlapped))
+        share = st["overlap_us"] / st["copy_us"] if st["copy_us"] else 0.0
+        log(f"overlap: traced run {i + 1} (scan_workers={len(datas)}, group=1, "
+            f"device_workers=2): {st['htod']} HtoD copies, pageable {st['pageable']}; "
+            f"path streams {st['streams']}, caller's stream {st['caller']} ({st['marks']} "
+            f"marks) with {st['on_caller']} of the path's events; copies "
+            f"{st['copy_us']:.3f} us, under the other worker's kernels {st['overlap_us']:.3f} us "
+            f"({100 * share:.1f}%); kernels busy {st['busy_us']:.3f} us of the path's "
+            f"{st['span_us']:.3f} us on the card")
+        traces.append(st)
+    check(sum(st["htod"] for st in traces) > 0, "overlap: the profiler recorded no HtoD copy")
+    check(all(not st["pageable"] for st in traces),
+          ("overlap: a copy of the path is pageable", [st["pageable"] for st in traces]))
+    check(any(st["caller"] is not None and len(st["streams"]) >= 2 and st["on_caller"] == 0
+              and st["overlap_us"] > 0 for st in traces),
+          ("overlap: no traced run had two streams, none on the caller's, and a copy under "
+           "the other worker's kernels",
+           [(st["streams"], st["on_caller"], st["overlap_us"]) for st in traces]))
+    return rates
+
+
 def phase_wires(records, sl, dev):
     """The v1 wires on the card: arithmetic-coded streams, which the fused
     scan declines, through the v1 plane-order wire; and the slice's
@@ -2303,6 +2459,7 @@ def run_all(dev):
     record_k2 = phase_kernel_fdct(dev)
     sl = phase_slice(records["k1"], dev)
     phase_batch(records, sl, dev)
+    overlap_rates = phase_overlap(sl, dev)
     phase_wires(records, sl, dev)
     phase_thumbnails(records, sl, dev)
     phase_encode(record_k2, sl["sources"], dev)
@@ -2315,6 +2472,8 @@ def run_all(dev):
     step_records = phase_full_step(step_inputs(sl["datas"]), dev)
     phase_mesh(sl)
     record_k4 = phase_golden(sl, dev)
+    log("stream MP/s by (group, device_workers): "
+        + ", ".join(f"{k}: {r:.3f}" for k, r in overlap_rates.items()))
     log(f"K1 launches on the later paths: fancy {3 * N_IMAGES}, u16 {3 * N_IMAGES}, "
         f"stripes {stripe_launches}, full_step {step_records['k1']['launches']}; K2 on the "
         f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}")

@@ -63,6 +63,31 @@ def delta_payload(result: DecodeResult) -> np.ndarray:
     return packed
 
 
+def check_device_color(result: DecodeResult) -> None:
+    """Raise for a result that has no device RGB transform: a lossless
+    result, or a colour transform other than YCbCr or grayscale."""
+    if result.samples is not None:
+        raise ValueError("lossless results have no device transform stage")
+    if result.color_transform not in ("ycbcr", "gray"):
+        raise ValueError(
+            "device RGB transform covers YCbCr/grayscale streams; "
+            f"this stream is {result.color_transform} — use the host "
+            "to_rgb8()/to_cmyk8() writers."
+        )
+
+
+def sparse_wire(result: DecodeResult):
+    """``(transform, wire)``: the result's v2 payload for
+    ``transform_mcu2``, else its v1 MCU payload for ``transform_mcu``,
+    else the v1 plane-order payload of its coefficient planes for
+    ``transform_delta``; the wire is a host array."""
+    if result.packed_mcu2 is not None:
+        return transform_mcu2, result.packed_mcu2
+    if result.packed_mcu is not None:
+        return transform_mcu, result.packed_mcu
+    return transform_delta, delta_payload(result)
+
+
 def to_rgb8_device(result: DecodeResult, *, device, sparse: bool = True,
                    upsample: str = "duplicate", scale: float = 1.0) -> torch.Tensor:
     """Planar ``[3, H', W']`` uint8 RGB on ``device`` for a YCbCr or
@@ -77,23 +102,12 @@ def to_rgb8_device(result: DecodeResult, *, device, sparse: bool = True,
     transforms, other scales, fancy upsampling at a scale below 1 and a
     scaled dense decode."""
     scale_n = scale_n_of(scale)
-    if result.samples is not None:
-        raise ValueError("lossless results have no device transform stage")
-    if result.color_transform not in ("ycbcr", "gray"):
-        raise ValueError(
-            "device RGB transform covers YCbCr/grayscale streams; "
-            f"this stream is {result.color_transform} — use the host "
-            "to_rgb8()/to_cmyk8() writers."
-        )
+    check_device_color(result)
     geometry = result.geometry
     quants = quant_tables(result)
-    kw = {"scale_n": scale_n, "upsample": upsample}
-    if result.packed_mcu2 is not None:
-        return transform_mcu2(result.packed_mcu2, quants, geometry, device, **kw)
-    if result.packed_mcu is not None:
-        return transform_mcu(result.packed_mcu, quants, geometry, device, **kw)
-    if sparse:
-        return transform_delta(delta_payload(result), quants, geometry, device, **kw)
+    if sparse or result.packed_mcu2 is not None or result.packed_mcu is not None:
+        transform, wire = sparse_wire(result)
+        return transform(wire, quants, geometry, device, scale_n=scale_n, upsample=upsample)
     if scale_n != 8:
         raise ValueError("scaled device decode rides the sparse paths")
     planes = [result.coefficients[c.component_index] for c in geometry.components]

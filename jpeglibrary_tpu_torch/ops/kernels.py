@@ -90,6 +90,20 @@ def transform_matrix(device: torch.device, n: int = 8) -> torch.Tensor:
 _COUNT_LOCK = threading.Lock()
 
 
+def count_launch(wrapper, box=None, **last) -> None:
+    """One launch on ``wrapper.launches`` and, with ``box``, on
+    ``wrapper.launches_by_box[box]``; ``last`` sets attributes that
+    describe the launch (K3's ``rounds``). Under one lock: the stream's
+    device workers launch from several threads, and ``+=`` on an
+    attribute can lose a count between them."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if box is not None:
+            wrapper.launches_by_box[box] = wrapper.launches_by_box.get(box, 0) + 1
+        for name, value in last.items():
+            setattr(wrapper, name, value)
+
+
 def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
                           level_shift: int, *, blocks_per_table: Optional[int] = None,
                           scale_n: int = 8) -> torch.Tensor:
@@ -159,8 +173,7 @@ def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        dequantize_idct_shift.launches += 1
+    count_launch(dequantize_idct_shift)
     return out
 
 
@@ -271,10 +284,7 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
         )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        fdct_quantize.launches += 1
-        key = (plane.dtype, hs, vs)
-        fdct_quantize.launches_by_box[key] = fdct_quantize.launches_by_box.get(key, 0) + 1
+    count_launch(fdct_quantize, box=(plane.dtype, hs, vs))
     return out
 
 
@@ -385,9 +395,7 @@ def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Ten
                                     max_blocks, stream)
     if err != 0:
         raise RuntimeError(f"K3 write launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        huffman_scan.launches += 1
-        huffman_scan.rounds = rounds.value
+    count_launch(huffman_scan, rounds=rounds.value)
     return out
 
 
@@ -440,8 +448,7 @@ def butterfly_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
                  int(level_shift), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        butterfly_idct_shift.launches += 1
+    count_launch(butterfly_idct_shift)
     return out
 
 

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import os
 import queue as queue_module
-import socket
 import time
 import traceback
 from typing import Optional, Sequence
@@ -33,15 +32,15 @@ from . import collectives
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
-def _init(address: str, num_processes: int, process_id: int, backend: str,
-          local_rank: int) -> None:
-    """``init_process_group`` at ``tcp://address``; on a machine with
-    CUDA, the rank's current device is card ``local_rank`` first (NCCL
-    needs one card per rank; gloo ranks may share)."""
+def _init(num_processes: int, process_id: int, backend: str, local_rank: int,
+          **rendezvous) -> None:
+    """``init_process_group`` through ``rendezvous`` (its ``init_method``
+    or ``store``); on a machine with CUDA, the rank's current device is
+    card ``local_rank`` first (NCCL needs one card per rank; gloo ranks may
+    share)."""
     if torch.cuda.is_available():
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=num_processes,
-                            rank=process_id)
+    dist.init_process_group(backend, world_size=num_processes, rank=process_id, **rendezvous)
 
 
 def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
@@ -63,7 +62,8 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if local_rank is None:
         local_rank = int(os.environ.get("LOCAL_RANK", process_id))
-    _init(coordinator_address, num_processes, process_id, backend, local_rank)
+    _init(num_processes, process_id, backend, local_rank,
+          init_method=f"tcp://{coordinator_address}")
 
 
 def make_global_mesh(*, stripe: int = 1, device_type: str = "cuda"):
@@ -147,17 +147,13 @@ def decode_batch_rgb_global(datas: Sequence[bytes], *, scan_workers: Optional[in
     return _from_local(local, mesh, {"data": 0})
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(rank: int, world: int, port: int, backend: str, target, args, results) -> None:
-    """A spawned rank: join the group, run ``target(*args)``, and report
-    ``(rank, ok, value or traceback)``."""
+    """A spawned rank: join the group through the parent's store at
+    ``port``, run ``target(*args)``, and report ``(rank, ok, value or
+    traceback)``."""
     try:
-        _init(f"127.0.0.1:{port}", world, rank, backend, rank)
+        _init(world, rank, backend, rank,
+              store=dist.TCPStore("127.0.0.1", port, world, is_master=False))
         value = target(*args)
         dist.barrier()
         dist.destroy_process_group()
@@ -168,8 +164,10 @@ def _rank_main(rank: int, world: int, port: int, backend: str, target, args, res
 
 def spawn(target, world: int, *args, backend: str, timeout: float = 120.0) -> list:
     """Run ``target(*args)`` in ``world`` spawned ranks of one new process
-    group (``backend`` over ``tcp://127.0.0.1`` on a free port) and return
-    each rank's value, in rank order. ``target`` and ``args`` must pickle:
+    group and return each rank's value, in rank order. The ranks meet at a
+    store that this process serves on a port it binds and holds (not a
+    port found free and released, which another process can take before
+    rank 0 binds it). ``target`` and ``args`` must pickle:
     ``target`` is a module-level function of a module the ranks can
     import. Raises if a rank raises or exits without a value, or if the
     world outlasts ``timeout`` seconds; every rank still running is then
@@ -178,7 +176,8 @@ def spawn(target, world: int, *args, backend: str, timeout: float = 120.0) -> li
 
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    store = dist.TCPStore("127.0.0.1", 0, world, is_master=True, wait_for_workers=False)
+    port = store.port
     procs = [ctx.Process(target=_rank_main, args=(rank, world, port, backend, target, args,
                                                   results), daemon=True)
              for rank in range(world)]

@@ -307,6 +307,73 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     assert failed[6:] == [("full_step launches", 0, 0)]
 
 
+PINNED = "Memcpy HtoD (Pinned -> Device)"
+PAGEABLE = "Memcpy HtoD (Pageable -> Device)"
+
+
+def _trace(*events):
+    """Chrome-trace device events from (category, name, stream, ts, dur)."""
+    return [{"cat": c, "name": n, "args": {"stream": s}, "ts": t, "dur": d}
+            for c, n, s, t, d in events]
+
+
+@pytest.mark.parametrize("events,want", [
+    # Two workers' streams 13 and 14 after the spin kernel on the caller's
+    # stream 7: the copy on 13 (100-140) lies under 14's kernels over
+    # 110-140 once, not under 13's own kernel; the copy on 14 (200-210)
+    # starts as 13's kernel ends.
+    (_trace(("kernel", "spin_kernel(long)", 7, 0, 50), ("gpu_memcpy", PINNED, 13, 100, 40),
+            ("kernel", "k1", 14, 110, 20), ("kernel", "k1", 14, 120, 30),
+            ("kernel", "k1", 13, 100, 100), ("gpu_memcpy", PINNED, 14, 200, 10),
+            ("gpu_memset", "Memset (Device)", 14, 215, 1)),
+     {"caller": 7, "streams": [13, 14], "on_caller": 0, "htod": 2, "pageable": [],
+      "copy_us": 50.0, "overlap_us": 30.0, "busy_us": 100.0, "span_us": 116.0}),
+    # A pageable copy, and a kernel on the caller's stream, which hides no
+    # copy of a worker.
+    (_trace(("kernel", "spin_kernel(long)", 7, 0, 5), ("gpu_memcpy", PAGEABLE, 13, 10, 10),
+            ("kernel", "k1", 7, 10, 10), ("gpu_memcpy", "Memcpy DtoD (Device -> Device)", 13,
+                                          30, 5)),
+     {"caller": 7, "streams": [13], "on_caller": 1, "htod": 1, "pageable": [PAGEABLE],
+      "copy_us": 10.0, "overlap_us": 0.0}),
+    # The first marking spin kernel lost, the one after the path kept.
+    (_trace(("gpu_memcpy", PINNED, 13, 0, 10), ("kernel", "k1", 14, 0, 10),
+            ("kernel", "at::cuda::(anonymous namespace)::spin_kernel(long)", 7, 30, 50)),
+     {"marks": 1, "caller": 7, "streams": [13, 14], "on_caller": 0, "htod": 1,
+      "pageable": [], "copy_us": 10.0, "overlap_us": 10.0, "busy_us": 10.0, "span_us": 10.0}),
+    # Both marks lost: no caller's stream is known.
+    (_trace(("gpu_memcpy", PINNED, 13, 0, 10), ("kernel", "k1", 14, 5, 10)),
+     {"marks": 0, "caller": None, "streams": [13, 14], "htod": 1, "overlap_us": 5.0}),
+])
+def test_overlap_stats_reads_a_trace(smoke, events, want):
+    got = smoke.overlap_stats(events)
+    assert {k: got[k] for k in want} == want
+
+
+def test_overlap_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """The overlap phase runs end to end on the CPU at 32 x 32 with a
+    synthetic trace: every output and trace check holds but the launch
+    counts, which only the card can meet."""
+    failed = []
+    monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
+    monkeypatch.setattr(smoke, "SIZE", 32)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    traced = []
+
+    def device_trace(fn):
+        traced.append(len(fn()))
+        return _trace(("kernel", "spin_kernel(long)", 7, 0, 5),
+                      ("gpu_memcpy", PINNED, 13, 10, 10), ("kernel", "k1", 14, 5, 10))
+
+    monkeypatch.setattr(smoke, "device_trace", device_trace)
+    datas = [smoke.encode_420(smoke.synth_image(s, 32), 75) for s in range(3)]
+    cpu = torch.device("cpu")
+    rates = smoke.phase_overlap({"datas": datas, "outs": smoke.stream(datas, cpu)}, cpu)
+    assert sorted(rates) == [(1, 1), (1, 2), (8, 1), (8, 2)] and all(r > 0 for r in
+                                                                      rates.values())
+    assert traced == [3] * smoke.OVERLAP_TRACES
+    assert failed == [("overlap K1 launches", g, w, 0) for g in (1, 8) for w in (1, 2)]
+
+
 @pytest.mark.parametrize("n_blocks,itemsize,want_us", [
     (65536, 2, 7.5123),   # the Y plane of a 2048x2048 image, int16 coefficients
     (65536, 4, 10.0163),  # int32 coefficients
