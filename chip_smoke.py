@@ -117,28 +117,35 @@ layer in spawned ranks. In order:
    4:2:2 streams. ``--phase device_scan`` runs this phase alone after the
    build, on sources it makes itself;
 15. full step: ``full_step`` on the slice's coefficient planes (Y
-   [8, 256, 256, 64] int16), 3 K1 and 3 K2 launches, its RGB (2 levels on
+   [8, 256, 256, 64] int16), 3 K1, 3 K2 and 2 K5 launches, its RGB (2 levels on
    <= 1e-4) and its requantised Y, Cb and Cr (1 on <= 1e-3) against the
    step with the plain versions, the chroma K2 calls also against their
    plain version on the same stacked planes, its four histograms equal to
    the host gather of its own requantised blocks (and to the plain step's
-   where the requantised blocks are equal); the step's time; its K1 and
-   K2 calls on the luma against their plain versions and ``torch.matmul``
-   in CUDA events, L2 flushed;
+   where the requantised blocks are equal); K5 (the symbol statistics,
+   ``csrc/symbol_hist.cu``) equal to its plain version on the step's own
+   luma and chroma blocks and on ``k5_edge_cases`` (there also to its CPU
+   model), 0 bins differing; the step's time beside the same step with
+   its statistics on their plain version (the step before K5), and its
+   kernels by name; its
+   K1 and K2 calls on the luma against their plain versions and
+   ``torch.matmul`` in CUDA events, L2 flushed; its K5 calls against
+   their plain version in CUDA events, warm and L2-flushed, and the count
+   of K5 records the profiler keeps of 5 launches;
 16. mesh: the mesh layer (``parallel/sharding.py``, ``parallel/distributed.py``
    over ``torch.distributed``) in ranks spawned from here after the build,
    each rank holding each path to its single-device counterpart on the card
-   bit for bit, with its K1 and K2 launches counted around each path
+   bit for bit, with its K1, K2 and K5 launches counted around each path
    (``mesh_rank``). World 1, NCCL, mesh (1, 1): ``make_sharded_full_step``
-   on the step's inputs (3 K1, 3 K2), ``decode_rgb_sharded`` of one image
+   on the step's inputs (3 K1, 3 K2, 2 K5), ``decode_rgb_sharded`` of one image
    through ``assemble_stripes`` (3 K1), ``decode_batch_rgb(mesh=)`` and
    ``decode_batch_rgb_global`` of the 8 images, ``mesh_symbol_frequencies``
-   against the host gather and an ``optimize_coding`` encode with the mesh
+   against the host gather (1 K5) and an ``optimize_coding`` encode with the mesh
    (the same bytes), with the host-clock times of the step, the stripe
    decode and the global batch beside their single-device counterparts.
    World 2, gloo, both ranks on cuda:0 (NCCL takes one rank per card):
    the step over meshes (2, 1) and (1, 2), where the boundary DC exchange
-   and the histogram all-reduce do real work (3 K1, 3 K2 per rank);
+   and the histogram all-reduce do real work (3 K1, 3 K2, 2 K5 per rank);
    ``decode_rgb_sharded`` over 2 stripes on the v2 wire, the v1 wire
    (``JPX_WIRE=1``), and progressive and lossless 2048x2048 streams written
    by the host encoders; ``decode_batch_rgb_global`` with 4 images a rank;
@@ -160,7 +167,8 @@ drives and reads them just after. Any failure raises and the script
 exits non-zero. The line before the last is a JSON record of the
 kernels (K1, one entry per K1 variant, K2, one entry per K2 box of 9,
 K3 at each restart interval and on the small ri 0 stream, the K1 and K2
-calls of ``full_step``, and K4: launches on the main paths, kernel
+calls of ``full_step``, K4, and K5 on ``full_step``'s luma: launches on
+the main paths, kernel
 time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
@@ -187,6 +195,8 @@ K3_SOURCE = "jpeglibrary_tpu_torch/csrc/huffman_scan.cu"
 K3_REPLACES = "jpeglibrary_tpu/ops/device_scan.py:121"  # _compiled_decoder: XLA, not Pallas
 K4_SOURCE = "jpeglibrary_tpu_torch/csrc/butterfly_idct.cu"
 K4_REPLACES = "jpeglibrary_tpu/ops/dct.py:167"  # idct8x8, the XLA butterfly of decode(xp=jnp)
+K5_SOURCE = "jpeglibrary_tpu_torch/csrc/symbol_hist.cu"
+K5_REPLACES = "jpeglibrary_tpu/ops/encode_stage.py:330"  # symbol_histograms_device: XLA, not Pallas
 # K4's float operations per block: 16 one-dimensional passes of 12
 # multiplies, 25 adds and 7 subtracts, and per sample the dequantize
 # multiply, the conversion, the 1/8 scale, the rounding and the level shift.
@@ -370,6 +380,7 @@ def reset_counts():
     kernels.fdct_quantize.launches_by_box.clear()
     kernels.huffman_scan.launches = 0
     kernels.butterfly_idct_shift.launches = 0
+    kernels.symbol_histograms.launches = 0
 
 
 def check_close(got, want, what, share=1e-4):
@@ -1919,16 +1930,75 @@ def phase_device_scan(sources, datas, dev):
     return records
 
 
+ZERO_RUNS = (15, 16, 31, 32, 47, 48, 62)  # runs at and about the ZRL steps, and the longest
+
+
+def k5_edge_cases(seed=13):
+    """The symbol statistics' edge batch, from ``seed`` with numpy: a list
+    of (label, blocks [B, N, 64], n_valid [B] or None, prev_dc [B] or
+    None). The card holds K5 to its plain version on it; the CPU tests
+    hold the plain version and the CPU model to the JAX package's
+    ``symbol_histograms_device`` and the host gather on the same batch."""
+    rng = np.random.default_rng(seed)
+
+    def sparse(lo, hi, shape, share, dtype=np.int16):
+        x = rng.integers(lo, hi, size=shape).astype(dtype)
+        x[..., 1:] *= (rng.random(shape[:-1] + (63,)) < share).astype(dtype)
+        return x
+
+    extremes = sparse(-32768, 32768, (2, 24, 64), 0.3)
+    extremes[..., 0] = np.where(np.arange(24) % 2, 32767, -32768)  # DC steps of 65,535
+    extremes[0, :, 5], extremes[1, :, 63] = -32768, 32767
+    wide = np.zeros((2, 16, 64), np.int32)  # sizes past 16 bits alias into the run nibble
+    values = np.array([1 << 15, 1 << 16, -(1 << 20), (1 << 31) - 1, -(1 << 31), 3], np.int64)
+    picks = rng.integers(0, len(values), size=wide.shape)
+    wide[...] = np.where(rng.random(wide.shape) < 0.4, values[picks], 0).astype(np.int32)
+    runs = np.zeros((1, 2 * len(ZERO_RUNS), 64), np.int16)
+    for i, r in enumerate(ZERO_RUNS):
+        runs[0, 2 * i, 0] = rng.integers(-500, 500)
+        runs[0, 2 * i, r + 1] = rng.integers(1, 40)  # r zeros from the start of the AC
+        runs[0, 2 * i + 1, 1] = -7
+        if r + 2 <= 63:
+            runs[0, 2 * i + 1, r + 2] = rng.integers(-40, -1)  # r zeros after a non-zero
+    tails = sparse(-60, 60, (3, 12, 64), 0.5)
+    tails[0, ::2, 63] = rng.integers(1, 9, size=6)  # a non-zero last coefficient: no EOB
+    tails[1] = 0  # a row of all-zero blocks
+    tails[2, 3:7] = 0
+    valid = sparse(-300, 300, (3, 40, 64), 0.2)
+    chained = sparse(-1000, 1000, (4, 20, 64), 0.2)
+    return [
+        ("int16 extremes", extremes, None, None),
+        ("int32 sizes above 16", wide, None, None),
+        ("zero runs", runs, None, None),
+        ("last coefficient and all-zero blocks", tails, None, None),
+        ("N = 1", sparse(-300, 300, (5, 1, 64), 0.3), None, None),
+        ("n_valid 0, partial, full", valid, np.array([0, 17, 40]), None),
+        ("prev_dc", chained, None, np.array([-2047, 0, 5, 1023], np.int32)),
+        ("prev_dc and n_valid", chained, np.array([20, 0, 1, 13]),
+         np.array([7, -7, 300, -32768], np.int32)),
+    ]
+
+
+def k5_bound(n_blocks, itemsize, n_rows=0):
+    """K5's bound: the blocks read once (and [n_rows] int32 n_valid and
+    prev_dc where given), the [2, 256] int32 histograms written once; one
+    non-zero test per coefficient."""
+    return bound(n_blocks * 64 * itemsize + 2 * n_rows * 4 + 2 * 256 * 4, 0, n_blocks * 64)
+
+
 def phase_full_step(inputs, dev):
     """``full_step`` on the slice's images' coefficient planes at full width
     (Y [8, 256, 256, 64] int16, chroma [8, 128, 128, 64]): K1 and K2 launched
     3 times each, RGB and the requantised Y, Cb and Cr against the step
     with their plain versions on the card, the chroma K2 calls against
     their plain version on the step's own planes, the four histograms
-    equal to the host gather of the step's own requantised blocks. Then
-    the step's time and records for its K1 and K2 calls on the luma."""
+    equal to the host gather of the step's own requantised blocks, K5
+    launched twice and equal to its plain version on the step's own
+    statistics inputs and on :func:`k5_edge_cases`. Then the step's time,
+    its kernels, and records for its K1 and K2 calls on the luma and its
+    K5 call on the luma."""
     from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
-    from jpeglibrary_tpu_torch.ops import color, decode_stage, kernels
+    from jpeglibrary_tpu_torch.ops import color, decode_stage, encode_stage, kernels
     from jpeglibrary_tpu_torch.parallel import full_step, sharding
 
     (y, cb, cr), (q_luma, q_chroma) = inputs
@@ -1938,9 +2008,12 @@ def phase_full_step(inputs, dev):
     torch.cuda.synchronize()
     k1_launches = kernels.dequantize_idct_shift.launches
     k2_launches = kernels.fdct_quantize.launches
+    k5_launches = kernels.symbol_histograms.launches
     log(f"full step: full_step over {y.shape[0]} images, Y {tuple(y.shape)} chroma "
-        f"{tuple(cb.shape)} int16: K1 launches {k1_launches}, K2 launches {k2_launches}")
-    check(k1_launches == 3 and k2_launches == 3, ("full_step launches", k1_launches, k2_launches))
+        f"{tuple(cb.shape)} int16: K1 launches {k1_launches}, K2 launches {k2_launches}, "
+        f"K5 launches {k5_launches}")
+    check((k1_launches, k2_launches, k5_launches) == (3, 3, 2),
+          ("full_step launches", k1_launches, k2_launches, k5_launches))
     b = y.shape[0]
     check(tuple(rgb.shape) == (b, SIZE, SIZE, 3) and rgb.dtype == torch.uint8, rgb.shape)
     check(requant.shape == args[0].shape and requant.dtype == torch.int16, requant.shape)
@@ -1962,7 +2035,8 @@ def phase_full_step(inputs, dev):
                                             kernels.fdct_quantize)
     check(torch.equal(rgb_, rgb) and torch.equal(requants[0], requant)
           and torch.equal(hists_, hists), "_step's outputs differ from full_step's")
-    plain_rgb, plain_requants, plain_hists = sharding._step(*args, k1_plain, k2_plain_call)
+    plain_rgb, plain_requants, plain_hists = sharding._step(
+        *args, k1_plain, k2_plain_call, k5=encode_stage.symbol_histograms_plain)
     check_close(rgb.cpu().numpy(), plain_rgb.cpu().numpy(), "full step: RGB vs plain")
     for name, got_q, want_q in zip(("Y", "Cb", "Cr"), requants, plain_requants):
         check(got_q.shape == want_q.shape and got_q.dtype == torch.int16, (name, got_q.shape))
@@ -2000,13 +2074,45 @@ def phase_full_step(inputs, dev):
         f"the plain step's requantised blocks {'equal' if same else 'differ from'} the step's, "
         f"its histograms {'equal' if torch.equal(plain_hists, hists) else 'differ'}")
 
+    # K5 against its plain version, exactly: on the blocks _step hands it
+    # (int16, in MCU walk order) and on the edge batch, there also against
+    # its CPU model (run here on the card's tensors).
+    y_mcu = sharding._mcu_order_batch(requants[0], 2, 2)
+    chroma_mcu = torch.cat([requants[1].reshape(b, -1, 64), requants[2].reshape(b, -1, 64)])
+
+    def on_dev(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+
+    k5_diff = 0
+    for label, x, n_valid, prev_dc in [("step luma", y_mcu, None, None),
+                                       ("step chroma", chroma_mcu, None, None)] + [
+            (label, *map(on_dev, case)) for label, *case in k5_edge_cases()]:
+        got = kernels.symbol_histograms(x, n_valid, prev_dc)
+        wants = [encode_stage.symbol_histograms_plain(x, n_valid, prev_dc)]
+        if not label.startswith("step"):
+            wants.append(encode_stage.symbol_histograms_model(x, n_valid, prev_dc))
+        for what, want in zip(("plain version", "CPU model"), wants):
+            d = torch.stack(got).to(torch.int64) - torch.stack(want).to(torch.int64)
+            n_diff = int((d != 0).sum())
+            k5_diff = max(k5_diff, int(d.abs().max()))
+            log(f"full step: K5 {label} {tuple(x.shape)} {str(x.dtype)[6:]} vs its {what}: "
+                f"{n_diff}/512 bins differ")
+            check(n_diff == 0, ("K5 differs from its " + what, label, n_diff))
+
     def step():
         return full_step(*args, device=dev)
 
+    def step_plain_statistics():  # the step as it ran before K5: its statistics plain
+        return sharding._step(*args, kernels.dequantize_idct_shift, kernels.fdct_quantize,
+                              k5=encode_stage.symbol_histograms_plain)
+
     step_ms = wall_ms(step, runs=5, warmup=1)
-    (step_kernel_ms,) = kernel_ms(step, runs=5)
+    before_ms = wall_ms(step_plain_statistics, runs=5, warmup=1)
+    step_kernel_ms, before_kernel_ms = kernel_ms(step, step_plain_statistics, runs=5)
     log(f"full step: {step_ms:.6f} ms per step of {b} images (host clock, synchronised, median "
-        f"of 5), {step_kernel_ms:.6f} ms of kernels (warm, mean of 5)")
+        f"of 5), {step_kernel_ms:.6f} ms of kernels (warm, mean of 5); with the statistics on "
+        f"their plain version (the step before K5) {before_ms:.6f} ms, {before_kernel_ms:.6f} "
+        "ms of kernels")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
@@ -2036,6 +2142,27 @@ def phase_full_step(inputs, dev):
                       lambda: k2_plain(y2, quant, 128, 1, 1, fdct),
                       lambda: kernels.fdct_quantize(y2, quant, 128),
                       lambda: torch.matmul(cut, fdct), flush=flush)
+    # The step's K5 calls beside their plain version in CUDA events, warm and
+    # L2-flushed, as the step's other calls: in this process the profiler has
+    # kept only some of K5's launches (the count is logged below).
+    k5_ms = {}
+    for label, x in (("luma", y_mcu), ("chroma", chroma_mcu)):
+        fns = (lambda: encode_stage.symbol_histograms_plain(x),
+               lambda: kernels.symbol_histograms(x))
+        b_ms, b_by = k5_bound(x.numel() // 64, x.element_size())
+        timings = {"warm": device_ms(*fns), "L2 flushed": device_ms(*fns, flush=flush)}
+        for what, (p_ms, k_ms) in timings.items():
+            log(f"full step: K5 on the step's {label} {tuple(x.shape)} int16, {what}: "
+                f"{k_ms:.6f} ms ({b_ms / k_ms:.1%} of its {b_by} bound {b_ms:.6f} ms), plain "
+                f"{p_ms:.6f} ms (CUDA events, median of {TIMED_RUNS} in turns)")
+        k5_ms[label] = (timings["L2 flushed"], (b_ms, b_by))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kernels.symbol_histograms(y_mcu)
+        torch.cuda.synchronize()
+    recorded = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "symbol_hist" in e.key)
+    log(f"full step: the profiler recorded {recorded} of 5 K5 launches in one window")
     del flush
     records = {}
     for key, name, source, replaces, launches, diff, (p_ms, k_ms, lib_ms), (b_ms, b_by) in (
@@ -2051,6 +2178,11 @@ def phase_full_step(inputs, dev):
             "name": f"{name}[full_step]", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": diff, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    (p_ms, k_ms), (b_ms, b_by) = k5_ms["luma"]
+    records["k5"] = {
+        "name": "symbol_histograms[full_step]", "route": "cuda", "source": K5_SOURCE,
+        "replaces": K5_REPLACES, "launches": k5_launches, "max_abs_err": k5_diff, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     return records
 
 
@@ -2073,8 +2205,8 @@ def mesh_rank(world, datas):
     """One rank of the mesh phase, in a world spawned by
     ``distributed.spawn`` (world 1 over NCCL, world 2 over gloo with both
     ranks on cuda:0): each mesh path against its single-device
-    counterpart on the same card, bit for bit, with the rank's K1 and K2
-    launches around each; in world 1 the host-clock times of both, in
+    counterpart on the same card, bit for bit, with the rank's K1, K2 and
+    K5 launches around each; in world 1 the host-clock times of both, in
     world 2 only the step's (logged only: its two ranks share the card).
     Returns the rank's log lines and launches."""
     import torch.distributed as dist
@@ -2102,7 +2234,8 @@ def mesh_rank(world, datas):
         reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        launches[key] = (kernels.dequantize_idct_shift.launches, kernels.fdct_quantize.launches)
+        launches[key] = (kernels.dequantize_idct_shift.launches, kernels.fdct_quantize.launches,
+                         kernels.symbol_histograms.launches)
         return out
 
     def host_ms(fn):
@@ -2119,11 +2252,12 @@ def mesh_rank(world, datas):
         got = counted(f"step {n}x{stripe}", lambda: step(*args))
         for name, g, w in zip(("rgb", "requant_y", "hists"), got, want):
             equal_to(full_tensor(g), w, f"sharded step {n}x{stripe} {name}")
-        k1, k2 = launches[f"step {n}x{stripe}"]
-        check((k1, k2) == (3, 3), ("sharded step launches", n, stripe, k1, k2))
+        k1, k2, k5 = launches[f"step {n}x{stripe}"]
+        check((k1, k2, k5) == (3, 3, 2), ("sharded step launches", n, stripe, k1, k2, k5))
         note(f"make_sharded_full_step on mesh {dict(zip(sharding.MESH_DIMS, mesh.shape))}, "
              f"Y {tuple(y.shape)}, local RGB {tuple(got[0].to_local().shape)}: RGB, requantised "
-             f"Y and the 4 histograms equal full_step's bit for bit; K1 {k1}, K2 {k2} launches")
+             f"Y and the 4 histograms equal full_step's bit for bit; K1 {k1}, K2 {k2}, K5 {k5} "
+             "launches")
         sharded_ms, single_ms = host_ms(lambda: step(*args)), host_ms(
             lambda: full_step(*args, device=dev))
         note(f"sharded step {sharded_ms:.6f} ms, full_step {single_ms:.6f} ms per step of "
@@ -2192,10 +2326,13 @@ def mesh_rank(world, datas):
         res = scan(datas[0])
         y_plane = res.coefficients[res.geometry.components[0].component_index]
         blocks = host_encode_stage.mcu_order_blocks(y_plane, 2, 2)
-        got = sharding.mesh_symbol_frequencies(blocks, data_mesh)
+        got = counted("statistics", lambda: sharding.mesh_symbol_frequencies(blocks, data_mesh))
         for g, w in zip(got, host_encode_stage.dc_ac_symbol_frequencies(blocks)):
             equal_to(g, w, "mesh_symbol_frequencies")
-        note(f"mesh_symbol_frequencies of {len(blocks)} luma blocks equal to the host gather")
+        k5 = launches["statistics"][2]
+        check(k5 == 1, ("mesh statistics K5 launches", launches["statistics"]))
+        note(f"mesh_symbol_frequencies of {len(blocks)} luma blocks equal to the host gather; "
+             f"K5 {k5} launches")
         img = synth_image(0, SIZE)
         plain = jtt.encode(rgb_encoder(img, 75, optimize_coding=True), device=dev)
         encoder = rgb_encoder(img, 75, optimize_coding=True)
@@ -2221,7 +2358,7 @@ def phase_mesh(sl):
             for line in r["lines"]:
                 log(line)
         log(f"mesh: world {world} over {backend}: {time.perf_counter() - start:.3f} s with the "
-            f"spawn; launches (K1, K2) by rank and path: {[r['launches'] for r in ranks]}")
+            f"spawn; launches (K1, K2, K5) by rank and path: {[r['launches'] for r in ranks]}")
 
 
 def k4_bound(n_blocks, itemsize):
@@ -2476,7 +2613,8 @@ def run_all(dev):
         + ", ".join(f"{k}: {r:.3f}" for k, r in overlap_rates.items()))
     log(f"K1 launches on the later paths: fancy {3 * N_IMAGES}, u16 {3 * N_IMAGES}, "
         f"stripes {stripe_launches}, full_step {step_records['k1']['launches']}; K2 on the "
-        f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}")
+        f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}; K5 on "
+        f"full_step {step_records['k5']['launches']}")
     return [*records.values(), record_k2, *box_records.values(), *scan_records.values(),
             *step_records.values(), record_k4]
 

@@ -83,6 +83,13 @@ _K4_ARGS = [
     ctypes.c_int,                      # level_shift
     ctypes.c_void_p,                   # cudaStream_t
 ]
+_K5_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p,  # blocks, n_valid (or null)
+    ctypes.c_void_p,                   # prev_dc (or null)
+    ctypes.c_int64, ctypes.c_int64,    # n_rows, n_cols
+    ctypes.c_void_p,                   # out [2, 256]
+    ctypes.c_void_p,                   # cudaStream_t
+]
 _ENTRY_POINTS = {
     "jpx_dequant_idct_i32": _K1_ARGS,
     "jpx_dequant_idct_i16": _K1_ARGS,
@@ -92,6 +99,8 @@ _ENTRY_POINTS = {
     "jpx_huffman_write": _K3_WRITE_ARGS,
     "jpx_butterfly_idct_i16": _K4_ARGS,
     "jpx_butterfly_idct_i32": _K4_ARGS,
+    "jpx_symbol_histograms_i16": _K5_ARGS,
+    "jpx_symbol_histograms_i32": _K5_ARGS,
 }
 
 

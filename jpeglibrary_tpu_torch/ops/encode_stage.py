@@ -14,10 +14,13 @@ reference's butterfly FDCT (``ops/dct.py``), bit for bit the JAX route on
 any device, in plain PyTorch ops as it is XLA ops there.
 
 :func:`symbol_histograms_device` is the port of the JAX package's device
-symbol statistics (``encode_stage.py:320-390``): the DC and AC Huffman
-symbol histograms of MCU-ordered blocks, bit-identical to the host
-gather ``dc_ac_symbol_frequencies``, in plain PyTorch ops (XLA in the JAX
-package, not a Pallas kernel).
+symbol statistics (``encode_stage.py:330``, XLA there, not a Pallas
+kernel): the DC and AC Huffman symbol histograms of MCU-ordered blocks,
+bit-identical to the host gather ``dc_ac_symbol_frequencies``. It runs
+K5 (``kernels.symbol_histograms``, ``csrc/symbol_hist.cu``) on the card;
+:func:`symbol_histograms_plain` is K5's plain version, the JAX program in
+plain PyTorch ops, and :func:`symbol_histograms_model` a CPU model of the
+kernel's per-block arithmetic.
 """
 
 from __future__ import annotations
@@ -147,10 +150,22 @@ def _bit_count_device(a: torch.Tensor) -> torch.Tensor:
 
 def symbol_histograms_device(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
                              prev_dc: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """DC and AC Huffman symbol histograms of int [B, N, 64] zig-zag
-    blocks in MCU walk order, each batch row one component instance with
-    its own DC predictor chain; ``n_valid`` [B] counts the real blocks of
-    each row (the rest are padding and count nothing). Returns
+    """DC and AC Huffman symbol histograms of int16 or int32 [B, N, 64]
+    zig-zag blocks in MCU walk order: :func:`symbol_histograms_plain`'s
+    result, through K5's wrapper ``kernels.symbol_histograms`` (the plain
+    version on a CPU tensor, ``csrc/symbol_hist.cu`` on a CUDA tensor).
+    ``n_valid`` and ``prev_dc`` [B] lie on the blocks' device."""
+    return kernels.symbol_histograms(blocks, n_valid, prev_dc)
+
+
+def symbol_histograms_plain(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
+                            prev_dc: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain version: the DC and AC Huffman symbol histograms of int
+    [B, N, 64] zig-zag blocks in MCU walk order, each batch row one
+    component instance with its own DC predictor chain; ``n_valid`` [B]
+    counts the real blocks of each row (the rest are padding and count
+    nothing). Returns
     (dc_freq [256], ac_freq [256]) int32, summed over the batch, on the
     blocks' device: the DC categories of successive differences, the AC
     (run, size) symbols, a ZRL per 16 zeros of a run and an EOB per block
@@ -194,3 +209,73 @@ def symbol_histograms_device(blocks: torch.Tensor, n_valid: Optional[torch.Tenso
     ac_freq[0xF0] += ((runs // 16) * w).sum(dtype=i32)
     ac_freq[0] += eob
     return dc_freq, ac_freq
+
+
+def _top_bit(x: torch.Tensor) -> torch.Tensor:
+    """The index of the highest set bit of each int64 value in [1, 2^63),
+    by six halving steps (the kernel's ``__clz`` / ``__clzll``)."""
+    out = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    for k in (32, 16, 8, 4, 2, 1):
+        high = (x >> k) != 0
+        out += high.to(torch.int64) * k
+        x = torch.where(high, x >> k, x)
+    return out
+
+
+def _bit_count_model(v: torch.Tensor) -> torch.Tensor:
+    """K5's bit count of int32 values: |v| in 32-bit two's complement, 0
+    for 0 and for the negative |INT_MIN|, else ``min(32 - clz(|v|), 16)``."""
+    a = v.to(torch.int64).abs()
+    a = torch.where(a > 0x7FFFFFFF, 0, a)  # only INT_MIN: its int32 abs is negative
+    return torch.where(a > 0, torch.clamp(_top_bit(a.clamp(min=1)) + 1, max=16), 0)
+
+
+def symbol_histograms_model(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
+                            prev_dc: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A CPU model of K5's per-block arithmetic (``csrc/symbol_hist.cu``),
+    in torch ops, with :func:`symbol_histograms_plain`'s arguments and
+    result: each block's 64-bit non-zero mask; for each non-zero AC
+    coefficient at zig-zag position p, its run from the previous set bit
+    (the highest bit of the mask below p with the DC bit cleared, or 0;
+    the kernel finds it once per 8 positions and carries it along them),
+    its symbol ``((run & 15) << 4) | bits`` and ``run >> 4`` ZRLs; an EOB
+    where coefficient 63 is zero; the DC against the block before it in
+    its row, or ``prev_dc`` (0 without it) at n = 0; nothing from the
+    blocks at n >= ``n_valid``. It exercises the kernel's algorithm where
+    no kernel runs."""
+    b, n, _ = blocks.shape
+    dev = blocks.device
+    i64 = torch.int64
+    v = blocks.to(torch.int32).reshape(b * n, 64)
+    nz = v != 0
+    pos = torch.arange(64, dtype=i64, device=dev)
+    mask = (nz.to(i64) << pos).sum(dim=1)  # wraps into bit 63 as the uint64 does
+    cols = torch.arange(n, device=dev).repeat(b)
+    if n_valid is None:
+        valid = torch.ones(b * n, dtype=torch.bool, device=dev)
+    else:
+        limit = torch.as_tensor(n_valid, device=dev).to(i64).clamp(0, n)
+        valid = cols < limit.repeat_interleave(n)
+
+    dc = v[:, 0]
+    first = (torch.zeros(b, dtype=torch.int32, device=dev) if prev_dc is None
+             else torch.as_tensor(prev_dc, device=dev).to(torch.int32).reshape(b))
+    prev = torch.where(cols == 0, first.repeat_interleave(n), torch.roll(dc, 1))
+    diff = (dc.to(i64) - prev.to(i64) + (1 << 31)) % (1 << 32) - (1 << 31)  # int32 wrap
+    dc_sym = _bit_count_model(diff)
+
+    lows = torch.tensor([(1 << p) - 1 for p in range(64)], dtype=i64, device=dev)
+    below = mask[:, None] & lows & ~1  # the AC bits under each position
+    prev_p = torch.where(below != 0, _top_bit(below.clamp(min=1)), 0)
+    runs = pos - prev_p - 1
+    ac_sym = ((runs & 15) << 4) | _bit_count_model(v)
+    take = nz & valid[:, None]
+    take[:, 0] = False
+    eob = valid & (v[:, 63] == 0)
+
+    dc_freq = torch.bincount(dc_sym[valid], minlength=256)
+    ac_freq = torch.bincount(ac_sym[take], minlength=256)
+    ac_freq[0xF0] += (runs[take] >> 4).sum()
+    ac_freq[0] += eob.sum()
+    return dc_freq.to(torch.int32), ac_freq.to(torch.int32)

@@ -25,8 +25,9 @@ transform and the true Huffman symbol statistics), ``assemble_stripes``
 and ``batched_transform_rgb``. The decode half runs K1
 (``kernels.dequantize_idct_shift``), the re-encode K2
 (``kernels.fdct_quantize``, which fuses the chroma's 2x2 box), the
-statistics ``encode_stage.symbol_histograms_device``; the sharded forms
-run the same kernels on each rank's device.
+statistics ``encode_stage.symbol_histograms_device`` (K5,
+``kernels.symbol_histograms``, on the int16 blocks as they are); the
+sharded forms run the same kernels on each rank's device.
 """
 
 from __future__ import annotations
@@ -169,7 +170,7 @@ def full_step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, *, device):
     [64] zig-zag. Inputs not on ``device`` are copied there. Returns (rgb
     uint8 [B, H, W, 3], requant_y int16 [B, Hb, Wb, 64], hists int32
     [4, 256]: DC luma, AC luma, DC chroma, AC chroma), on ``device``. On
-    the card: 3 K1 and 3 K2 launches."""
+    the card: 3 K1, 3 K2 and 2 K5 launches."""
     rgb, requant, hists = _step(*_step_inputs(y_coeffs, cb_coeffs, cr_coeffs, qt_luma,
                                               qt_chroma, device),
                                 kernels.dequantize_idct_shift, kernels.fdct_quantize)
@@ -186,12 +187,15 @@ def _step_inputs(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, device):
             to_dev(qt_luma, torch.int32), to_dev(qt_chroma, torch.int32))
 
 
-def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1, k2, chain_prev=None):
+def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1, k2, chain_prev=None,
+          k5=encode_stage.symbol_histograms_device):
     """:func:`full_step` on tensors of one device, with K1's and K2's
     wrappers (or functions of their signatures: their plain versions, the
     yardstick ``chip_smoke.py`` holds the step to on the card) as ``k1``
-    and ``k2``. Returns (rgb, (requant_y, requant_cb, requant_cr), hists):
-    the step's outputs with the requantised chroma it counts besides.
+    and ``k2``, and the symbol statistics as ``k5`` (through K5's wrapper,
+    or ``encode_stage.symbol_histograms_plain``). Returns (rgb,
+    (requant_y, requant_cb, requant_cr), hists): the step's outputs with
+    the requantised chroma it counts besides.
 
     The histograms count B luma chains, then B Cb and B Cr chains, each
     from DC 0; ``chain_prev``, where given, maps the last DC of each of
@@ -221,8 +225,8 @@ def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1, k2, chain_prev
     if chain_prev is not None:
         prev = chain_prev(torch.cat([y_mcu[:, -1, 0], chroma_mcu[:, -1, 0]]).to(torch.int32))
         prev_l, prev_c = prev[:b], prev[b:]
-    dc_l, ac_l = encode_stage.symbol_histograms_device(y_mcu, prev_dc=prev_l)
-    dc_c, ac_c = encode_stage.symbol_histograms_device(chroma_mcu, prev_dc=prev_c)
+    dc_l, ac_l = k5(y_mcu, prev_dc=prev_l)
+    dc_c, ac_c = k5(chroma_mcu, prev_dc=prev_c)
     return rgb, (requant_y, requant_cb, requant_cr), torch.stack([dc_l, ac_l, dc_c, ac_c])
 
 
@@ -244,7 +248,7 @@ def make_sharded_full_step(mesh):
     """:func:`full_step` over ``mesh``: the batch over ``data`` and the luma
     block rows over ``stripe`` (the chroma rows follow at half), as JAX's
     ``P("data", "stripe")``. Each rank runs the step on its block on its
-    own device (3 K1 and 3 K2 launches); at each stripe boundary the DC
+    own device (3 K1, 3 K2 and 2 K5 launches); at each stripe boundary the DC
     predictor chains (each image's luma, Cb and Cr) take the previous
     stripe's last DC, and the histograms are all-reduced over the mesh.
 
@@ -303,10 +307,10 @@ def mesh_symbol_frequencies(blocks: np.ndarray, mesh):
     mine = np.asarray(blocks)[d * per:(d + 1) * per]
     local[: len(mine)] = mine
     last = int(mine[-1, 0]) if len(mine) else 0
-    prev = _prev_across(mesh, "data")(torch.tensor([last], dtype=torch.int32))
+    prev = _prev_across(mesh, "data")(torch.tensor([last], dtype=torch.int32, device=device))
     dc, ac = encode_stage.symbol_histograms_device(
-        torch.from_numpy(local)[None].to(device), n_valid=torch.tensor([len(mine)]),
-        prev_dc=prev)
+        torch.from_numpy(local)[None].to(device),
+        n_valid=torch.tensor([len(mine)], dtype=torch.int32, device=device), prev_dc=prev)
     dc, ac = collectives.all_reduce_sum(torch.stack([dc, ac]), mesh.get_group("data")).cpu()
     return dc.numpy().astype(np.int64), ac.numpy().astype(np.int64)
 

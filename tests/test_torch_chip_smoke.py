@@ -288,7 +288,9 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     step = smoke.phase_full_step(smoke.step_inputs(datas), torch.device("cpu"))
     assert set(scan) == {0, 1, 2, "small"}
     assert [r["name"] for r in step.values()] == ["dequantize_idct_shift[full_step]",
-                                                  "fdct_quantize[full_step]"]
+                                                  "fdct_quantize[full_step]",
+                                                  "symbol_histograms[full_step]"]
+    assert step["k5"]["library_ms"] is None and step["k5"]["bound_by"] == "bytes"
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert scan[0]["plain_ms"] is None and scan[0]["max_abs_err"] is None  # no plain run
@@ -304,7 +306,7 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     assert [f[0] for f in failed[4:6]] == ["small ri 0: K3 differs from its CPU model",
                                            "small ri 0, corrupt: K3 differs from its CPU model"]
     assert all(f[1] >= 2 and f[2] == 0 for f in failed[4:6])  # (model rounds, K3 rounds)
-    assert failed[6:] == [("full_step launches", 0, 0)]
+    assert failed[6:] == [("full_step launches", 0, 0, 0)]
 
 
 PINNED = "Memcpy HtoD (Pinned -> Device)"
@@ -388,6 +390,19 @@ def test_k4_bound(smoke, n_blocks, itemsize, want_us):
     assert smoke.K4_OPS_PER_BLOCK == 1024
 
 
+@pytest.mark.parametrize("n_blocks,itemsize,n_rows,want_us", [
+    (8 * 65536, 2, 0, 20.0331),   # full_step's luma, 8 images of 2048x2048, int16
+    (16 * 16384, 2, 0, 10.0169),  # its Cb and Cr chains
+    (1024, 4, 1, 0.0789),         # a mesh shard with n_valid and prev_dc, int32
+])
+def test_k5_bound(smoke, n_blocks, itemsize, n_rows, want_us):
+    """K5's bound: the blocks (and n_valid and prev_dc) read once, the two
+    histograms written once; one test per coefficient is far below it."""
+    ms, by = smoke.k5_bound(n_blocks, itemsize, n_rows)
+    assert by == "bytes"
+    assert abs(ms * 1e3 - want_us) < 1e-3, ms * 1e3
+
+
 def test_golden_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     """The bit-exact decode phase runs end to end on the CPU at 64 x 64
     with the timers stubbed: every plane, region and K4 check holds, 0
@@ -437,11 +452,12 @@ def test_mesh_phase_rehearses_on_cpu_ranks(smoke, world):
     steps = [(1, 1)] if world == 1 else [(2, 1), (2, 2)]
     modes = ["v2"] if world == 1 else ["v2", "v1", "progressive"]
     for r in ranks:
-        batch = [("batch mesh K1 launches", (0, 0))] if world == 1 else []
-        assert r["failed"] == ([("sharded step launches", n, s, 0, 0) for n, s in steps]
+        batch = [("batch mesh K1 launches", (0, 0, 0))] if world == 1 else []
+        stats = [("mesh statistics K5 launches", (0, 0, 0))] if world == 1 else []
+        assert r["failed"] == ([("sharded step launches", n, s, 0, 0, 0) for n, s in steps]
                                + [("stripe K1 launches", m, 0) for m in modes]
-                               + batch + [("global batch K1 launches", (0, 0))])
-        assert all(v == (0, 0) for v in r["launches"].values())
+                               + batch + [("global batch K1 launches", (0, 0, 0))] + stats)
+        assert all(v == (0, 0, 0) for v in r["launches"].values())
         assert sum("bit for bit" in line for line in r["lines"]) == len(steps) + len(modes) + (
             world == 2) + 1
 

@@ -311,7 +311,7 @@ def test_kernel_source_is_built_and_bound():
     beside them)."""
     sources = sorted(p.name for p in _build._CSRC.glob("*.cu"))
     assert sources == ["butterfly_idct.cu", "dequant_idct.cu", "fdct_quant.cu",
-                       "huffman_scan.cu"]
+                       "huffman_scan.cu", "symbol_hist.cu"]
     text = (_build._CSRC / "huffman_scan.cu").read_text()
     for name in ("jpx_huffman_sync", "jpx_huffman_write"):
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
