@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --phase device_scan   # the device scan (K3) alone
+    python3 chip_smoke.py --phase full_step     # the full step (K5's times and parts) alone
 
 Drives the port's main paths on the card at the size users run: the
 serving decode, a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
@@ -123,15 +124,20 @@ layer in spawned ranks. In order:
    plain version on the same stacked planes, its four histograms equal to
    the host gather of its own requantised blocks (and to the plain step's
    where the requantised blocks are equal); K5 (the symbol statistics,
-   ``csrc/symbol_hist.cu``) equal to its plain version on the step's own
-   luma and chroma blocks and on ``k5_edge_cases`` (there also to its CPU
-   model), 0 bins differing; the step's time beside the same step with
-   its statistics on their plain version (the step before K5), and its
-   kernels by name; its
-   K1 and K2 calls on the luma against their plain versions and
-   ``torch.matmul`` in CUDA events, L2 flushed; its K5 calls against
-   their plain version in CUDA events, warm and L2-flushed, and the count
-   of K5 records the profiler keeps of 5 launches;
+   ``csrc/symbol_hist.cu``, reading the step's planes where K2 wrote them:
+   the luma walked at MCU (2, 2), Cb and Cr as one call) equal to its plain
+   version on the step's own planes and on ``k5_edge_cases`` and
+   ``k5_plane_cases`` (there also to its CPU model), 0 bins differing; no
+   torch call of the step copying blocks into walk order (no cat of
+   [..., 64] blocks, no 6-D permute; ``block_moves``); the step's time
+   beside the same step with K5's inputs copied into walk order first and
+   with its statistics on their plain version (the step before K5), and its
+   kernels by name; its K1 and K2 calls on the luma against their plain
+   versions and ``torch.matmul`` in CUDA events, L2 flushed; its K5 calls
+   against their plain version in CUDA events, warm and L2-flushed, the
+   count of K5 records the profiler keeps of 5 launches, and
+   ``tools/k5_probe.py``'s parts of K5 on the step's planes (``k5_parts``).
+   ``--phase full_step`` runs this phase alone after the build;
 16. mesh: the mesh layer (``parallel/sharding.py``, ``parallel/distributed.py``
    over ``torch.distributed``) in ranks spawned from here after the build,
    each rank holding each path to its single-device counterpart on the card
@@ -1979,11 +1985,92 @@ def k5_edge_cases(seed=13):
     ]
 
 
+def k5_plane_cases(seed=14):
+    """K5's edge batch on component planes read in place, from ``seed``
+    with numpy: a list of (label, planes (one [B, Hb, Wb, 64] array or a
+    tuple of them), n_valid [R] or None, prev_dc [R] or None, mcu). Rows
+    wider than one of the kernel's tiles (128 blocks) and MCU rows that
+    end in a short tile; int32 values past 16 bits. The card holds K5 to
+    its plain version and CPU model on it; the CPU tests hold both to the
+    JAX package's ``_mcu_order_batch`` + ``symbol_histograms_device``."""
+    rng = np.random.default_rng(seed)
+
+    def sparse(shape, lo=-900, hi=900, share=0.25, dtype=np.int16):
+        x = rng.integers(lo, hi, size=shape).astype(dtype)
+        x[..., 1:] *= (rng.random(shape[:-1] + (63,)) < share).astype(dtype)
+        return x
+
+    wide = sparse((2, 4, 70, 64), dtype=np.int32)
+    wide[0, 1, 3, 5], wide[1, 2, 7, 9], wide[1, 3, 69, 63] = -(1 << 31), 1 << 20, -(1 << 17)
+    luma = sparse((2, 6, 74, 64))  # 37 MCUs a row at (2, 2): tiles of 32 and 5 MCUs
+    return [
+        ("plane at MCU (2, 2)", luma, None, None, (2, 2)),
+        ("plane at MCU (2, 2), n_valid and prev_dc", luma, np.array([444, 101]),
+         np.array([-2047, 300], np.int32), (2, 2)),
+        ("int32 plane at MCU (2, 1), sizes above 16", wide, None, np.array([5, -5], np.int32),
+         (2, 1)),
+        ("plane at MCU (1, 2)", sparse((3, 4, 131, 64)), np.array([0, 524, 17]), None, (1, 2)),
+        ("two planes at MCU (1, 1)", (sparse((3, 2, 150, 64)), sparse((3, 2, 150, 64), share=0.05)),
+         np.array([300, 299, 0, 1, 150, 7]), np.array([1, -2, 3, -4, 5, -6], np.int32), (1, 1)),
+        ("plane at MCU (4, 4)", sparse((1, 8, 36, 64)), None, np.array([9], np.int32), (4, 4)),
+    ]
+
+
 def k5_bound(n_blocks, itemsize, n_rows=0):
     """K5's bound: the blocks read once (and [n_rows] int32 n_valid and
     prev_dc where given), the [2, 256] int32 histograms written once; one
     non-zero test per coefficient."""
     return bound(n_blocks * 64 * itemsize + 2 * n_rows * 4 + 2 * 256 * 4, 0, n_blocks * 64)
+
+
+def block_moves(fn):
+    """Run ``fn`` and return the torch calls in it that copy [..., 64]
+    coefficient blocks into MCU walk order, as (op, shapes): a cat or stack
+    of such blocks, or a permute of a 6-D tensor (the walk's); seen by a
+    ``TorchFunctionMode`` around the call."""
+    from torch.overrides import TorchFunctionMode
+
+    lists = (torch.cat, torch.concat, torch.stack)
+    permutes = (torch.permute, torch.Tensor.permute)
+    seen = []
+
+    class Watch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in lists and args:
+                shapes = [tuple(x.shape) for x in args[0] if torch.is_tensor(x)]
+                if any(len(s) > 1 and s[-1] == 64 for s in shapes):
+                    seen.append((func.__name__, shapes))
+            elif func in permutes and args and torch.is_tensor(args[0]) and args[0].dim() == 6:
+                seen.append((func.__name__, [tuple(args[0].shape)]))
+            return func(*args, **(kwargs or {}))
+
+    with Watch():
+        fn()
+    return seen
+
+
+def k5_parts(step_k5, flush):
+    """``tools/k5_probe.py``'s breakdown of K5 on the step's own planes:
+    the kernel's variants with parts cut out, the read yardstick and a
+    torch copy, L2-flushed, in CUDA events (the variants built here, one
+    nvcc a variant, all started together)."""
+    import importlib.util
+    import pathlib
+    import tempfile
+
+    path = pathlib.Path(__file__).resolve().parent / "tools" / "k5_probe.py"
+    spec = importlib.util.spec_from_file_location("k5_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = probe.build(probe.sources(), pathlib.Path(tmp))
+        log(f"full step: K5's parts: {len(libs)} variants built in "
+            f"{time.perf_counter() - t0:.3f} s")
+        for label, x, mcu in step_k5:
+            probe.time_parts(libs, f"full step: K5's parts on the {label}",
+                             x if isinstance(x, tuple) else (x,), mcu, flush,
+                             modes=("L2 flushed",))
 
 
 def phase_full_step(inputs, dev):
@@ -2074,29 +2161,34 @@ def phase_full_step(inputs, dev):
         f"the plain step's requantised blocks {'equal' if same else 'differ from'} the step's, "
         f"its histograms {'equal' if torch.equal(plain_hists, hists) else 'differ'}")
 
-    # K5 against its plain version, exactly: on the blocks _step hands it
-    # (int16, in MCU walk order) and on the edge batch, there also against
-    # its CPU model (run here on the card's tensors).
-    y_mcu = sharding._mcu_order_batch(requants[0], 2, 2)
-    chroma_mcu = torch.cat([requants[1].reshape(b, -1, 64), requants[2].reshape(b, -1, 64)])
+    # K5 against its plain version, exactly: on the planes _step hands it
+    # where K2 wrote them (the luma walked at MCU (2, 2), the two chroma
+    # planes as one call) and on the edge batches, flat and as planes,
+    # there also against its CPU model (run here on the card's tensors).
+    step_k5 = [("step luma", requants[0], (2, 2)), ("step chroma", tuple(requants[1:]), (1, 1))]
 
     def on_dev(a):
+        if isinstance(a, (tuple, list)):
+            return tuple(on_dev(x) for x in a)
         return None if a is None else torch.from_numpy(a).to(dev)
 
     k5_diff = 0
-    for label, x, n_valid, prev_dc in [("step luma", y_mcu, None, None),
-                                       ("step chroma", chroma_mcu, None, None)] + [
-            (label, *map(on_dev, case)) for label, *case in k5_edge_cases()]:
-        got = kernels.symbol_histograms(x, n_valid, prev_dc)
-        wants = [encode_stage.symbol_histograms_plain(x, n_valid, prev_dc)]
+    for label, x, n_valid, prev_dc, mcu in [(label, x, None, None, mcu)
+                                            for label, x, mcu in step_k5] + [
+            (label, *map(on_dev, case), (1, 1)) for label, *case in k5_edge_cases()] + [
+            (label, *map(on_dev, case), mcu) for label, *case, mcu in k5_plane_cases()]:
+        got = kernels.symbol_histograms(x, n_valid, prev_dc, mcu=mcu)
+        wants = [encode_stage.symbol_histograms_plain(x, n_valid, prev_dc, mcu=mcu)]
         if not label.startswith("step"):
-            wants.append(encode_stage.symbol_histograms_model(x, n_valid, prev_dc))
+            wants.append(encode_stage.symbol_histograms_model(x, n_valid, prev_dc, mcu=mcu))
+        first = x[0] if isinstance(x, tuple) else x
+        shape = (f"{len(x)} x " if isinstance(x, tuple) else "") + f"{tuple(first.shape)}"
         for what, want in zip(("plain version", "CPU model"), wants):
             d = torch.stack(got).to(torch.int64) - torch.stack(want).to(torch.int64)
             n_diff = int((d != 0).sum())
             k5_diff = max(k5_diff, int(d.abs().max()))
-            log(f"full step: K5 {label} {tuple(x.shape)} {str(x.dtype)[6:]} vs its {what}: "
-                f"{n_diff}/512 bins differ")
+            log(f"full step: K5 {label} {shape} {str(first.dtype)[6:]} at MCU {mcu} vs its "
+                f"{what}: {n_diff}/512 bins differ")
             check(n_diff == 0, ("K5 differs from its " + what, label, n_diff))
 
     def step():
@@ -2106,13 +2198,30 @@ def phase_full_step(inputs, dev):
         return sharding._step(*args, kernels.dequantize_idct_shift, kernels.fdct_quantize,
                               k5=encode_stage.symbol_histograms_plain)
 
+    def k5_after_copies(blocks, n_valid=None, prev_dc=None, *, mcu=(1, 1)):
+        return kernels.symbol_histograms(encode_stage.mcu_walk(blocks, mcu), n_valid, prev_dc)
+
+    def step_with_copies():  # the statistics' inputs copied into walk order first
+        return sharding._step(*args, kernels.dequantize_idct_shift, kernels.fdct_quantize,
+                              k5=k5_after_copies)
+
     step_ms = wall_ms(step, runs=5, warmup=1)
+    copies_ms = wall_ms(step_with_copies, runs=5, warmup=1)
     before_ms = wall_ms(step_plain_statistics, runs=5, warmup=1)
-    step_kernel_ms, before_kernel_ms = kernel_ms(step, step_plain_statistics, runs=5)
+    step_kernel_ms, copies_kernel_ms, before_kernel_ms = kernel_ms(
+        step, step_with_copies, step_plain_statistics, runs=5)
     log(f"full step: {step_ms:.6f} ms per step of {b} images (host clock, synchronised, median "
-        f"of 5), {step_kernel_ms:.6f} ms of kernels (warm, mean of 5); with the statistics on "
-        f"their plain version (the step before K5) {before_ms:.6f} ms, {before_kernel_ms:.6f} "
-        "ms of kernels")
+        f"of 5), {step_kernel_ms:.6f} ms of kernels (warm, mean of 5); with K5's inputs copied "
+        f"into walk order first (the MCU-order copy and the chroma cat) {copies_ms:.6f} ms, "
+        f"{copies_kernel_ms:.6f} ms of kernels; with the statistics on their plain version (the "
+        f"step before K5) {before_ms:.6f} ms, {before_kernel_ms:.6f} ms of kernels")
+    # No op of the step moves the requantised blocks for the statistics: no
+    # cat of [..., 64] blocks, no 6-D permute (the MCU-order copy's).
+    moves = block_moves(step)
+    log(f"full step: torch calls of one step that copy blocks into walk order: "
+        f"{moves if moves else 'none'} (with the copies put back: "
+        f"{len(block_moves(step_with_copies))})")
+    check(not moves, ("full_step copies its blocks for the statistics", moves))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
@@ -2142,27 +2251,31 @@ def phase_full_step(inputs, dev):
                       lambda: k2_plain(y2, quant, 128, 1, 1, fdct),
                       lambda: kernels.fdct_quantize(y2, quant, 128),
                       lambda: torch.matmul(cut, fdct), flush=flush)
-    # The step's K5 calls beside their plain version in CUDA events, warm and
+    # The step's K5 calls on its planes in place, beside their plain version
+    # (which copies them into walk order first) in CUDA events, warm and
     # L2-flushed, as the step's other calls: in this process the profiler has
     # kept only some of K5's launches (the count is logged below).
     k5_ms = {}
-    for label, x in (("luma", y_mcu), ("chroma", chroma_mcu)):
-        fns = (lambda: encode_stage.symbol_histograms_plain(x),
-               lambda: kernels.symbol_histograms(x))
-        b_ms, b_by = k5_bound(x.numel() // 64, x.element_size())
+    for label, x, mcu in step_k5:
+        fns = (lambda: encode_stage.symbol_histograms_plain(x, mcu=mcu),
+               lambda: kernels.symbol_histograms(x, mcu=mcu))
+        n_k5 = sum(q.numel() for q in (x if isinstance(x, tuple) else (x,))) // 64
+        b_ms, b_by = k5_bound(n_k5, 2)
         timings = {"warm": device_ms(*fns), "L2 flushed": device_ms(*fns, flush=flush)}
         for what, (p_ms, k_ms) in timings.items():
-            log(f"full step: K5 on the step's {label} {tuple(x.shape)} int16, {what}: "
-                f"{k_ms:.6f} ms ({b_ms / k_ms:.1%} of its {b_by} bound {b_ms:.6f} ms), plain "
-                f"{p_ms:.6f} ms (CUDA events, median of {TIMED_RUNS} in turns)")
+            log(f"full step: K5 on the {label} ({n_k5} int16 blocks in place, MCU {mcu}), "
+                f"{what}: {k_ms:.6f} ms ({b_ms / k_ms:.1%} of its {b_by} bound {b_ms:.6f} ms), "
+                f"plain {p_ms:.6f} ms (CUDA events, median of {TIMED_RUNS} in turns)")
         k5_ms[label] = (timings["L2 flushed"], (b_ms, b_by))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            kernels.symbol_histograms(y_mcu)
+            kernels.symbol_histograms(requants[0], mcu=(2, 2))
         torch.cuda.synchronize()
     recorded = sum(e.count for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and "symbol_hist" in e.key)
     log(f"full step: the profiler recorded {recorded} of 5 K5 launches in one window")
+    if dev.type == "cuda":
+        k5_parts(step_k5, flush)
     del flush
     records = {}
     for key, name, source, replaces, launches, diff, (p_ms, k_ms, lib_ms), (b_ms, b_by) in (
@@ -2178,7 +2291,7 @@ def phase_full_step(inputs, dev):
             "name": f"{name}[full_step]", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": diff, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    (p_ms, k_ms), (b_ms, b_by) = k5_ms["luma"]
+    (p_ms, k_ms), (b_ms, b_by) = k5_ms["step luma"]
     records["k5"] = {
         "name": "symbol_histograms[full_step]", "route": "cuda", "source": K5_SOURCE,
         "replaces": K5_REPLACES, "launches": k5_launches, "max_abs_err": k5_diff, "ms": k_ms,
@@ -2567,12 +2680,23 @@ def scan_phase_only(dev):
     return list(phase_device_scan(sources, datas, dev).values())
 
 
+def step_phase_only(dev):
+    """``--phase full_step``: the full-step phase alone (K5's checks, times
+    and parts among it), on the slice's 8 images made and encoded here."""
+    t0 = time.perf_counter()
+    datas = [encode_420(synth_image(seed, SIZE), 75) for seed in range(N_IMAGES)]
+    log(f"full step only: {N_IMAGES} sources {SIZE}x{SIZE} encoded, "
+        f"{time.perf_counter() - t0:.3f} s")
+    return list(phase_full_step(step_inputs(datas), dev).values())
+
+
 def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    parser.add_argument("--phase", choices=("all", "device_scan"), default="all",
-                        help="run every phase (the default) or the device scan phase alone")
+    parser.add_argument("--phase", choices=("all", "device_scan", "full_step"), default="all",
+                        help="run every phase (the default), or the device scan phase or the "
+                             "full-step phase alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2582,6 +2706,8 @@ def main(argv=None):
     dev = torch.device("cuda")
     if args.phase == "device_scan":
         kernel_records = scan_phase_only(dev)
+    elif args.phase == "full_step":
+        kernel_records = step_phase_only(dev)
     else:
         kernel_records = run_all(dev)
     print(json.dumps({"kernels": kernel_records}))

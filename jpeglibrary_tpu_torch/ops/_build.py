@@ -84,9 +84,13 @@ _K4_ARGS = [
     ctypes.c_void_p,                   # cudaStream_t
 ]
 _K5_ARGS = [
-    ctypes.c_void_p, ctypes.c_void_p,  # blocks, n_valid (or null)
-    ctypes.c_void_p,                   # prev_dc (or null)
-    ctypes.c_int64, ctypes.c_int64,    # n_rows, n_cols
+    ctypes.c_void_p, ctypes.c_void_p,  # planes 0 and 1
+    ctypes.c_void_p, ctypes.c_void_p,  # planes 2 and 3 (null past n_planes)
+    ctypes.c_int,                      # n_planes
+    ctypes.c_int64, ctypes.c_int64,    # batch, height_blocks
+    ctypes.c_int64,                    # width_blocks
+    ctypes.c_int, ctypes.c_int,        # the MCU's h, v
+    ctypes.c_void_p, ctypes.c_void_p,  # n_valid, prev_dc (or null)
     ctypes.c_void_p,                   # out [2, 256]
     ctypes.c_void_p,                   # cudaStream_t
 ]

@@ -148,32 +148,97 @@ def _bit_count_device(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def symbol_histograms_device(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
-                             prev_dc: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """DC and AC Huffman symbol histograms of int16 or int32 [B, N, 64]
-    zig-zag blocks in MCU walk order: :func:`symbol_histograms_plain`'s
-    result, through K5's wrapper ``kernels.symbol_histograms`` (the plain
-    version on a CPU tensor, ``csrc/symbol_hist.cu`` on a CUDA tensor).
-    ``n_valid`` and ``prev_dc`` [B] lie on the blocks' device."""
-    return kernels.symbol_histograms(blocks, n_valid, prev_dc)
+MCU_SHAPES = range(1, 5)  # h and v of an MCU, as JPEG allows
+MAX_PLANES = 4  # K5's planes in one call
 
 
-def symbol_histograms_plain(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
-                            prev_dc: Optional[torch.Tensor] = None
+def k5_planes(blocks, mcu=(1, 1)) -> Tuple[Tuple[torch.Tensor, ...], int, int]:
+    """K5's block forms as (planes, h, v), each plane [B, Hb, Wb, 64]:
+
+    - [B, N, 64] int16 or int32 blocks already in walk order, one chain a
+      row: one plane [B, 1, N, 64] (a view), ``mcu`` (1, 1);
+    - a [B, Hb, Wb, 64] component plane in its natural layout, walked in
+      the interleaved order of an ``mcu`` = (h, v) MCU (v rows of h
+      blocks each), h dividing Wb and v dividing Hb;
+    - a tuple or list of 1 to 4 such planes of one shape, dtype and device,
+      whose chains stack plane after plane (B chains of the first, then B
+      of the next).
+
+    Raises TypeError or ValueError for anything else."""
+    many = isinstance(blocks, (tuple, list))
+    planes = tuple(blocks) if many else (blocks,)
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"K5 takes 1 to {MAX_PLANES} planes, got {len(planes)}")
+    for x in planes:
+        if not torch.is_tensor(x):
+            raise TypeError(f"blocks must be tensors, got {type(x).__name__}")
+        if x.dtype not in (torch.int16, torch.int32):
+            raise TypeError(f"blocks must be int16 or int32, got {x.dtype}")
+    first = planes[0]
+    if any(x.shape != first.shape or x.dtype != first.dtype or x.device != first.device
+           for x in planes):
+        raise ValueError("K5's planes must share one shape, dtype and device")
+    h, v = (int(n) for n in mcu)
+    if h not in MCU_SHAPES or v not in MCU_SHAPES:
+        raise ValueError(f"an MCU is 1 to 4 blocks each way, got {tuple(mcu)}")
+    if first.dim() == 3 and first.shape[-1] == 64 and not many:
+        if (h, v) != (1, 1):
+            raise ValueError(f"[B, N, 64] blocks are in walk order already; got mcu {(h, v)}")
+        return (first.unsqueeze(1),), 1, 1
+    if first.dim() != 4 or first.shape[-1] != 64:
+        raise ValueError("blocks must be [B, N, 64] or [B, Hb, Wb, 64] planes, got "
+                         f"{tuple(first.shape)}")
+    if first.shape[1] % v or first.shape[2] % h:
+        raise ValueError(f"{tuple(first.shape[1:3])} blocks are no whole ({h}, {v}) MCUs")
+    return planes, h, v
+
+
+def mcu_walk(blocks, mcu=(1, 1)) -> torch.Tensor:
+    """K5's blocks (any form of :func:`k5_planes`) as [R, N, 64] in MCU
+    walk order, R = planes x B chains: the JAX package's
+    ``_mcu_order_batch`` of each plane (a permute copy), the planes' chains
+    stacked. The plain version's way in; the kernel reads the planes where
+    they lie."""
+    planes, h, v = k5_planes(blocks, mcu)
+    out = []
+    for x in planes:
+        b, hb, wb, _ = x.shape
+        x = x.reshape(b, hb // v, v, wb // h, h, 64).permute(0, 1, 3, 2, 4, 5)
+        out.append(x.reshape(b, hb * wb, 64))
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def symbol_histograms_device(blocks, n_valid: Optional[torch.Tensor] = None,
+                             prev_dc: Optional[torch.Tensor] = None, *,
+                             mcu=(1, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DC and AC Huffman symbol histograms of int16 or int32 zig-zag
+    blocks, in any form of :func:`k5_planes` (component planes walked in
+    the order of an ``mcu`` = (h, v) MCU where they lie):
+    :func:`symbol_histograms_plain`'s result, through K5's wrapper
+    ``kernels.symbol_histograms`` (the plain version on a CPU tensor,
+    ``csrc/symbol_hist.cu`` on a CUDA tensor). ``n_valid`` and ``prev_dc``
+    [R] lie on the blocks' device."""
+    return kernels.symbol_histograms(blocks, n_valid, prev_dc, mcu=mcu)
+
+
+def symbol_histograms_plain(blocks, n_valid: Optional[torch.Tensor] = None,
+                            prev_dc: Optional[torch.Tensor] = None, *, mcu=(1, 1)
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5's plain version: the DC and AC Huffman symbol histograms of int
-    [B, N, 64] zig-zag blocks in MCU walk order, each batch row one
-    component instance with its own DC predictor chain; ``n_valid`` [B]
-    counts the real blocks of each row (the rest are padding and count
-    nothing). Returns
+    zig-zag blocks in any form of :func:`k5_planes`, first put into MCU
+    walk order by :func:`mcu_walk` ([B, N, 64] blocks as they are), each
+    row one component instance with its own DC predictor chain;
+    ``n_valid`` [R] counts the real blocks of each row (the rest are
+    padding and count nothing). Returns
     (dc_freq [256], ac_freq [256]) int32, summed over the batch, on the
     blocks' device: the DC categories of successive differences, the AC
     (run, size) symbols, a ZRL per 16 zeros of a run and an EOB per block
     whose last coefficient is zero.
 
-    A row's first DC differs from 0, or from ``prev_dc`` [B] where given:
+    A row's first DC differs from 0, or from ``prev_dc`` [R] where given:
     the DC before the row in its chain, when the row is a shard of a
     longer chain (the mesh's boundary exchange)."""
+    blocks = mcu_walk(blocks, mcu)
     b, n, _ = blocks.shape
     dev = blocks.device
     i32 = torch.int32
@@ -230,27 +295,67 @@ def _bit_count_model(v: torch.Tensor) -> torch.Tensor:
     return torch.where(a > 0, torch.clamp(_top_bit(a.clamp(min=1)) + 1, max=16), 0)
 
 
-def symbol_histograms_model(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
-                            prev_dc: Optional[torch.Tensor] = None
+K5_TILE_BLOCKS = 128  # the blocks of one of K5's tiles, one a consumer thread
+
+
+def k5_walk(hb: int, wb: int, h: int, v: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's walk of one [Hb, Wb] plane of an (h, v) MCU, by the kernel's
+    own index arithmetic: (pos, pred) int64 [Hb Wb], walk index t -> the
+    block's flat position ``row * Wb + col`` in the plane, and the
+    position of the block whose DC comes before it (-1 at t = 0).
+
+    A tile is C = 128 // (h v) MCUs of one MCU row; its v block rows land
+    in shared memory one after another, C h blocks apart; consumer thread
+    k counts walk block k of the tile at the stage offset ((k % hv) // h
+    * C + k // hv) * h + k % h, and its DC comes from thread k - 1's
+    offset, or for k = 0 from the last block of the MCU before the tile
+    (in the MCU row above at the row's start)."""
+    hv = h * v
+    c = K5_TILE_BLOCKS // hv
+    mcu_cols = wb // h
+    t = torch.arange(hb * wb, dtype=torch.int64, device=device)
+    mcu = t // hv
+    mr, mc = mcu // mcu_cols, mcu % mcu_cols
+    mc0 = mc // c * c  # the tile's first MCU
+    k = t - (mr * mcu_cols + mc0) * hv
+
+    def stage_to_plane(kk):
+        at = ((kk % hv) // h * c + kk // hv) * h + kk % h
+        return (mr * v + at // (c * h)) * wb + mc0 * h + at % (c * h)
+
+    pos = stage_to_plane(k)
+    before = torch.where(mc0 > 0, (mr * v + v - 1) * wb + mc0 * h - 1, (mr * v - 1) * wb + wb - 1)
+    pred = torch.where(k > 0, stage_to_plane(k - 1), torch.where(t > 0, before, -1))
+    return pos, pred
+
+
+def symbol_histograms_model(blocks, n_valid: Optional[torch.Tensor] = None,
+                            prev_dc: Optional[torch.Tensor] = None, *, mcu=(1, 1)
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A CPU model of K5's per-block arithmetic (``csrc/symbol_hist.cu``),
-    in torch ops, with :func:`symbol_histograms_plain`'s arguments and
-    result: each block's 64-bit non-zero mask; for each non-zero AC
-    coefficient at zig-zag position p, its run from the previous set bit
-    (the highest bit of the mask below p with the DC bit cleared, or 0;
-    the kernel finds it once per 8 positions and carries it along them),
-    its symbol ``((run & 15) << 4) | bits`` and ``run >> 4`` ZRLs; an EOB
-    where coefficient 63 is zero; the DC against the block before it in
-    its row, or ``prev_dc`` (0 without it) at n = 0; nothing from the
-    blocks at n >= ``n_valid``. It exercises the kernel's algorithm where
-    no kernel runs."""
-    b, n, _ = blocks.shape
-    dev = blocks.device
+    """A CPU model of K5 (``csrc/symbol_hist.cu``), in torch ops, with
+    :func:`symbol_histograms_plain`'s arguments and result: the walk of
+    each plane by the kernel's tile and stage arithmetic (:func:`k5_walk`,
+    in place, without the plain version's permute copy); per block its
+    64-bit non-zero mask, and for each non-zero AC coefficient at zig-zag
+    position p, taken from the top, its run to the next lower set bit q
+    (the highest bit of the mask below p with the DC bit cleared, or 0)
+    p - q - 1, its symbol ``((run & 15) << 4) | bits`` and ``run >> 4``
+    ZRLs; an EOB where coefficient 63 is zero; the DC against the block
+    :func:`k5_walk` names, or ``prev_dc`` (0 without it) at t = 0; nothing
+    from the blocks at t >= ``n_valid``. It exercises the kernel's
+    algorithm where no kernel runs."""
+    planes, mcu_h, mcu_v = k5_planes(blocks, mcu)
+    _, hb, wb, _ = planes[0].shape
+    dev = planes[0].device
     i64 = torch.int64
-    v = blocks.to(torch.int32).reshape(b * n, 64)
+    pos, pred = k5_walk(hb, wb, mcu_h, mcu_v, dev)
+    n = hb * wb
+    flat = torch.cat([x.reshape(x.shape[0], n, 64) for x in planes]).to(torch.int32)
+    b = flat.shape[0]
+    v = flat[:, pos].reshape(b * n, 64)
     nz = v != 0
-    pos = torch.arange(64, dtype=i64, device=dev)
-    mask = (nz.to(i64) << pos).sum(dim=1)  # wraps into bit 63 as the uint64 does
+    at = torch.arange(64, dtype=i64, device=dev)
+    mask = (nz.to(i64) << at).sum(dim=1)  # wraps into bit 63 as the uint64 does
     cols = torch.arange(n, device=dev).repeat(b)
     if n_valid is None:
         valid = torch.ones(b * n, dtype=torch.bool, device=dev)
@@ -261,14 +366,15 @@ def symbol_histograms_model(blocks: torch.Tensor, n_valid: Optional[torch.Tensor
     dc = v[:, 0]
     first = (torch.zeros(b, dtype=torch.int32, device=dev) if prev_dc is None
              else torch.as_tensor(prev_dc, device=dev).to(torch.int32).reshape(b))
-    prev = torch.where(cols == 0, first.repeat_interleave(n), torch.roll(dc, 1))
+    before = flat[:, pred.clamp(min=0), 0].reshape(b * n)
+    prev = torch.where(pred.repeat(b) < 0, first.repeat_interleave(n), before)
     diff = (dc.to(i64) - prev.to(i64) + (1 << 31)) % (1 << 32) - (1 << 31)  # int32 wrap
     dc_sym = _bit_count_model(diff)
 
     lows = torch.tensor([(1 << p) - 1 for p in range(64)], dtype=i64, device=dev)
     below = mask[:, None] & lows & ~1  # the AC bits under each position
     prev_p = torch.where(below != 0, _top_bit(below.clamp(min=1)), 0)
-    runs = pos - prev_p - 1
+    runs = at - prev_p - 1
     ac_sym = ((runs & 15) << 4) | _bit_count_model(v)
     take = nz & valid[:, None]
     take[:, 0] = False

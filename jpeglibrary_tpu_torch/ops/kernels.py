@@ -62,13 +62,15 @@ CUDA tensor and takes the plain version
 only for a CPU tensor.
 
 K5, the symbol statistics: the DC and AC Huffman symbol histograms of
-zig-zag blocks in MCU walk order, one DC predictor chain per row.
-Counterpart of the XLA program of ``jpeglibrary_tpu/ops/encode_stage.py:330``
+zig-zag blocks walked in MCU order, one DC predictor chain per row.
+Counterpart of the XLA program of ``jpeglibrary_tpu/parallel/sharding.py:60``
+``_mcu_order_batch`` + ``jpeglibrary_tpu/ops/encode_stage.py:330``
 ``symbol_histograms_device`` (not Pallas), which ``full_step``, the
 sharded step and ``mesh_symbol_frequencies`` run.
 :func:`symbol_histograms` launches ``csrc/symbol_hist.cu`` for a CUDA
-tensor (a warp per 4 blocks, a 64-bit non-zero mask per block, bins per
-warp in shared memory, only non-zero contributions added) and takes the
+tensor (component planes read where they lie: tiles of whole MCUs staged
+through shared memory by bulk copies, a thread per block walking the set
+bits of its non-zero mask, bins per warp in shared memory) and takes the
 plain version (``encode_stage.symbol_histograms_plain``) only for a CPU
 tensor; the results are integer sums and equal bit for bit.
 """
@@ -466,25 +468,28 @@ def butterfly_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
 butterfly_idct_shift.launches = 0
 
 
-def symbol_histograms(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
-                      prev_dc: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int16 (or int32) [B, N, 64] zig-zag blocks in MCU walk order ->
-    (dc_freq [256], ac_freq [256]) int32 Huffman symbol histograms summed
-    over the B rows, each row one DC predictor chain: ``encode_stage.
-    symbol_histograms_plain``'s result. ``n_valid`` [B] counts the real
-    blocks of each row (the rest count nothing); ``prev_dc`` [B] is the DC
-    before each row's first block (0 without it). Both, where given, lie
-    on the blocks' device.
+def symbol_histograms(blocks, n_valid: Optional[torch.Tensor] = None,
+                      prev_dc: Optional[torch.Tensor] = None, *,
+                      mcu=(1, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int16 (or int32) zig-zag blocks -> (dc_freq [256], ac_freq [256])
+    int32 Huffman symbol histograms summed over their R chains:
+    ``encode_stage.symbol_histograms_plain``'s result. ``blocks`` is any
+    form of ``encode_stage.k5_planes``: [B, N, 64] blocks in walk order,
+    a [B, Hb, Wb, 64] component plane walked in the interleaved order of
+    an ``mcu`` = (h, v) MCU where it lies (``full_step``'s luma at (2,
+    2)), or a tuple of up to 4 planes of one shape whose chains stack
+    (its Cb and Cr). ``n_valid`` [R] counts the real blocks of each chain
+    (the rest count nothing); ``prev_dc`` [R] is the DC before each
+    chain's first block (0 without it). Both, where given, lie on the
+    blocks' device.
 
     On a CPU tensor it runs the plain version; on a CUDA tensor it
     launches ``csrc/symbol_hist.cu``, or raises.
     ``symbol_histograms.launches`` counts the kernel's launches."""
-    if blocks.dtype not in (torch.int16, torch.int32):
-        raise TypeError(f"blocks must be int16 or int32, got {blocks.dtype}")
-    if blocks.dim() != 3 or blocks.shape[-1] != 64:
-        raise ValueError(f"blocks must be [B, N, 64], got {tuple(blocks.shape)}")
-    device = blocks.device
-    b, n = blocks.shape[0], blocks.shape[1]
+    planes, h, v = encode_stage.k5_planes(blocks, mcu)
+    device = planes[0].device
+    b, hb, wb = planes[0].shape[:3]
+    rows = len(planes) * b
     for name, t in (("n_valid", n_valid), ("prev_dc", prev_dc)):
         if t is None:
             continue
@@ -492,30 +497,32 @@ def symbol_histograms(blocks: torch.Tensor, n_valid: Optional[torch.Tensor] = No
             raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
         if t.device != device:
             raise ValueError(f"{name} on {t.device}, blocks on {device}")
-        if tuple(t.shape) != (b,) or t.is_floating_point() or t.is_complex():
-            raise ValueError(f"{name} must be an integer [{b}], got {t.dtype} {tuple(t.shape)}")
+        if tuple(t.shape) != (rows,) or t.is_floating_point() or t.is_complex():
+            raise ValueError(f"{name} must be an integer [{rows}], got {t.dtype} {tuple(t.shape)}")
     if device.type == "cpu":
-        return encode_stage.symbol_histograms_plain(blocks, n_valid, prev_dc)
+        return encode_stage.symbol_histograms_plain(blocks, n_valid, prev_dc, mcu=mcu)
     if device.type != "cuda":
         raise ValueError(f"no K5 kernel for device {device}")
-    if not blocks.is_contiguous():
+    if not all(x.is_contiguous() for x in planes):
         raise ValueError("blocks must be contiguous")
 
     out = torch.zeros((2, 256), dtype=torch.int32, device=device)
-    if blocks.numel() == 0:
+    if rows * hb * wb == 0:
         return out[0], out[1]
-    if blocks.data_ptr() % 16:  # the kernel loads 16 bytes at a time
-        blocks = blocks.clone()
+    # The kernel copies whole blocks of 16-byte-aligned planes.
+    planes = [x.clone() if x.data_ptr() % 16 else x for x in planes]
     if n_valid is not None:
-        n_valid = n_valid.clamp(0, n).to(torch.int32).contiguous()
+        n_valid = n_valid.clamp(0, hb * wb).to(torch.int32).contiguous()
     if prev_dc is not None:
         prev_dc = prev_dc.to(torch.int32).contiguous()
+    ptrs = [x.data_ptr() for x in planes] + [None] * (encode_stage.MAX_PLANES - len(planes))
     lib = _build.load_library()
-    fn = (lib.jpx_symbol_histograms_i32 if blocks.dtype == torch.int32
+    fn = (lib.jpx_symbol_histograms_i32 if planes[0].dtype == torch.int32
           else lib.jpx_symbol_histograms_i16)
     with torch.cuda.device(device):
-        err = fn(blocks.data_ptr(), None if n_valid is None else n_valid.data_ptr(),
-                 None if prev_dc is None else prev_dc.data_ptr(), b, n, out.data_ptr(),
+        err = fn(*ptrs, len(planes), b, hb, wb, h, v,
+                 None if n_valid is None else n_valid.data_ptr(),
+                 None if prev_dc is None else prev_dc.data_ptr(), out.data_ptr(),
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")

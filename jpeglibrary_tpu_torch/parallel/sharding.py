@@ -26,7 +26,8 @@ and ``batched_transform_rgb``. The decode half runs K1
 (``kernels.dequantize_idct_shift``), the re-encode K2
 (``kernels.fdct_quantize``, which fuses the chroma's 2x2 box), the
 statistics ``encode_stage.symbol_histograms_device`` (K5,
-``kernels.symbol_histograms``, on the int16 blocks as they are); the
+``kernels.symbol_histograms``, on the requantised int16 planes where K2
+wrote them, walked in MCU order in place); the
 sharded forms run the same kernels on each rank's device.
 """
 
@@ -140,15 +141,6 @@ def _fdct_quantize_batch(planes: torch.Tensor, qt_zz: torch.Tensor, *, hs: int =
     return out.reshape(b, hb, wb, 64)
 
 
-def _mcu_order_batch(coeffs: torch.Tensor, h: int, v: int) -> torch.Tensor:
-    """[B, Hb, Wb, 64] -> [B, N, 64] in the interleaved MCU walk order
-    (per MCU: v rows of h blocks), the order of the DC predictor chain."""
-    b, hb, wb, _ = coeffs.shape
-    mr, mc = hb // v, wb // h
-    x = coeffs.reshape(b, mr, v, mc, h, 64)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, mr * mc * v * h, 64)
-
-
 def _component_plane(coeffs: torch.Tensor, qt_zz: torch.Tensor, up: int, k1) -> torch.Tensor:
     """One component's decode: [B, Hb, Wb, 64] zig-zag coefficients -> K1
     (one launch for the batch) -> int32 [B, Hb*8*up, Wb*8*up] samples,
@@ -218,15 +210,16 @@ def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1, k2, chain_prev
     requant_cb = _fdct_quantize_batch(cb2, qt_chroma, hs=2, vs=2, k2=k2)
     requant_cr = _fdct_quantize_batch(cr2, qt_chroma, hs=2, vs=2, k2=k2)
 
-    # The symbol statistics; each chroma component is a chain of its own.
-    y_mcu = _mcu_order_batch(requant_y, 2, 2)
-    chroma_mcu = torch.cat([requant_cb.reshape(b, -1, 64), requant_cr.reshape(b, -1, 64)])
+    # The symbol statistics, on the planes where K2 wrote them: the luma in
+    # its 2x2 MCU walk, each chroma component a chain of its own. The last
+    # block of each walk is the plane's bottom-right one.
     prev_l = prev_c = None
     if chain_prev is not None:
-        prev = chain_prev(torch.cat([y_mcu[:, -1, 0], chroma_mcu[:, -1, 0]]).to(torch.int32))
+        last = torch.cat([q[:, -1, -1, 0] for q in (requant_y, requant_cb, requant_cr)])
+        prev = chain_prev(last.to(torch.int32))
         prev_l, prev_c = prev[:b], prev[b:]
-    dc_l, ac_l = k5(y_mcu, prev_dc=prev_l)
-    dc_c, ac_c = k5(chroma_mcu, prev_dc=prev_c)
+    dc_l, ac_l = k5(requant_y, prev_dc=prev_l, mcu=(2, 2))
+    dc_c, ac_c = k5((requant_cb, requant_cr), prev_dc=prev_c)
     return rgb, (requant_y, requant_cb, requant_cr), torch.stack([dc_l, ac_l, dc_c, ac_c])
 
 

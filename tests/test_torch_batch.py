@@ -33,6 +33,10 @@ from jpeglibrary_tpu.syntax import huffman_standard
 from jpeglibrary_tpu.syntax.quantization import scale_by_quality, standard_luminance_table
 from jpeglibrary_tpu_torch.ops import decode_stage, kernels
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _k1_inputs(n_tables, blocks_per_table, seed):
     rng = np.random.default_rng(seed)

@@ -28,6 +28,10 @@ from jpeglibrary_tpu.models.encoder import _configure_rgb_encoder as ref_configu
 from jpeglibrary_tpu_torch.host.models.encoder import _configure_rgb_encoder
 from jpeglibrary_tpu_torch.ops import _device
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 CPU = torch.device("cpu")
 
 

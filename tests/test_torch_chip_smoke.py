@@ -21,6 +21,10 @@ torch = pytest.importorskip("torch")
 import jpeglibrary_tpu as jt
 import jpeglibrary_tpu_torch as jtt
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -167,6 +171,34 @@ def test_k2_probe_exits_nonzero_without_cuda():
     assert r.returncode != 0 and "parts:" not in r.stdout
 
 
+@pytest.fixture(scope="module")
+def k5_probe():
+    spec = importlib.util.spec_from_file_location("k5_probe", ROOT / "tools" / "k5_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("variant", ["whole kernel", "staged loads only", "loads and masks",
+                                     "no AC atomics", "walk and atomics, no symbols", "2 stages",
+                                     "4 stages", "clock"])
+def test_k5_probe_cuts_apply_to_the_kernel_source(k5_probe, variant):
+    """tools/k5_probe.py times K5 with parts cut out by text substitutions
+    on csrc/symbol_hist.cu: each must still find its text exactly once."""
+    subs = k5_probe.CYCLES if variant == "clock" else k5_probe.CUT[variant]
+    text = k5_probe.variant_source(subs)
+    assert "symbol_hist_kernel" in text
+    assert all(new in text for _, new in subs)
+    assert set(k5_probe.EXACT) <= set(k5_probe.CUT)
+
+
+def test_k5_probe_exits_nonzero_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / "k5_probe.py")], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "parts:" not in r.stdout
+
+
 @pytest.mark.parametrize("hs,vs", [(3, 1), (1, 3), (3, 3), (4, 3), (4, 4)])
 @pytest.mark.parametrize("precision", [8, 12])
 def test_box_encoder_matches_jax_device_encode(smoke, hs, vs, precision):
@@ -266,8 +298,9 @@ def test_k3_bound(smoke, buf_bytes, out_bytes, symbols, want_us):
 def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     """The device-scan and full-step phases run end to end on the CPU at a
     small size with the timers stubbed: every check holds but the launch
-    counts, which only the card can meet (the CPU takes the plain
-    versions)."""
+    counts and K5's in-place walk, which only the card can meet (the CPU
+    takes the plain versions, and K5's copies the step's planes into walk
+    order: three 6-D permutes and the chroma cat)."""
     failed = []
     monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
     monkeypatch.setattr(smoke, "SIZE", 32)
@@ -306,7 +339,10 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     assert [f[0] for f in failed[4:6]] == ["small ri 0: K3 differs from its CPU model",
                                            "small ri 0, corrupt: K3 differs from its CPU model"]
     assert all(f[1] >= 2 and f[2] == 0 for f in failed[4:6])  # (model rounds, K3 rounds)
-    assert failed[6:] == [("full_step launches", 0, 0, 0)]
+    assert failed[6] == ("full_step launches", 0, 0, 0)
+    assert failed[7][0] == "full_step copies its blocks for the statistics"
+    assert [op for op, _ in failed[7][1]] == ["permute"] * 3 + ["cat"]
+    assert len(failed) == 8
 
 
 PINNED = "Memcpy HtoD (Pinned -> Device)"

@@ -19,6 +19,10 @@ from jpeglibrary_tpu.cli import transcode as ref_transcode
 
 from jpeglibrary_tpu_torch.cli import debugdump, decode, encode, optimize, transcode
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _image(h=72, w=88, seed=2):
     rng = np.random.default_rng(seed)

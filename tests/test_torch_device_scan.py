@@ -21,6 +21,10 @@ from jpeglibrary_tpu.ops import device_scan as ref_scan
 import jpeglibrary_tpu_torch as jtt
 from jpeglibrary_tpu_torch.ops import _build, device_scan, kernels
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _rgb(seed, h=64, w=96):
     rng = np.random.default_rng(seed)

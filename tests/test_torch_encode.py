@@ -28,6 +28,10 @@ from jpeglibrary_tpu_torch.host.models import encoder as host_encoder
 from jpeglibrary_tpu_torch.models import encoder as port_encoder
 from jpeglibrary_tpu_torch.ops import encode_stage, kernels
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 LEVEL_SHIFTS = [128, 2048]
 
 

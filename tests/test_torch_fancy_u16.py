@@ -23,6 +23,10 @@ from jpeglibrary_tpu.ops import pipeline as ref_pipeline
 from jpeglibrary_tpu_torch.models.decoder import delta_payload, quant_tables
 from jpeglibrary_tpu_torch.ops import decode_stage
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _image(h, w, seed, sigma=20.0):
     rng = np.random.default_rng(seed)

@@ -35,6 +35,10 @@ from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
 from jpeglibrary_tpu_torch.ops import color, encode_stage, kernels
 from jpeglibrary_tpu_torch.parallel import sharding
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _example_args(batch=2, hb=8, wb=16, seed=0):
     """``__graft_entry__._example_args``: random zig-zag coefficients and

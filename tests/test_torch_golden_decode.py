@@ -35,6 +35,10 @@ from jpeglibrary_tpu_torch.host.ops import pipeline as host_pipeline
 from jpeglibrary_tpu_torch.models.decoder import quant_tables
 from jpeglibrary_tpu_torch.ops import _build, dct, decode_stage, encode_stage, kernels, pipeline
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 CPU = torch.device("cpu")
 H, W = 61, 75  # odd, so every component's grid is ragged
 

@@ -5,10 +5,8 @@ host RGB), the same errors, and the host encoder the same bytes. Exact
 equality throughout: the copies run the same numpy and native code."""
 
 import dataclasses
-import fcntl
 import os
 import pathlib
-import time
 
 import numpy as np
 import pytest
@@ -28,6 +26,10 @@ from jpeglibrary_tpu_torch.host.native import build as host_build
 from jpeglibrary_tpu_torch.host.ops import decode_stage as host_decode_stage
 from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 REF = ROOT / "jpeglibrary_tpu"
 HOST = ROOT / "jpeglibrary_tpu_torch" / "host"
@@ -35,25 +37,10 @@ HOST = ROOT / "jpeglibrary_tpu_torch" / "host"
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_scanner():
-    """The reference's native scanner, built and loaded before these tests.
-
-    The reference's build compiles every process into one temporary file,
-    so a test worker that builds it while another does can lose the rename,
-    or load a library the other is still writing, and keep that failure for
-    the rest of its run. Here the build runs under a lock, and a failure is
-    cleared and the load tried again until the other build has settled."""
-    out_dir = ref_build._build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "reference-build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        for _ in range(60):
-            if ref_build._LIB is None:
-                ref_build._FAILED = None
-            try:
-                ref_build.load_library()
-                return
-            except ImportError:
-                time.sleep(1.0)
+    """The reference's native scanner, built and loaded before these tests
+    (``torch_reference_native.settle``, which this module also calls while
+    it is imported); here its absence fails the tests that need it."""
+    settle()
     ref_build.load_library()
 
 

@@ -23,6 +23,10 @@ from jpeglibrary_tpu.ops import decode_stage as ref_stage
 from jpeglibrary_tpu.ops import pallas_kernels
 from jpeglibrary_tpu_torch.ops import decode_stage, kernels
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _inputs(n_blocks, seed=5):
     rng = np.random.default_rng(seed)

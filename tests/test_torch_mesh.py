@@ -49,6 +49,10 @@ from jpeglibrary_tpu_torch.parallel import distributed, sharding
 
 import torch_mesh_workers as workers
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 SPAWN_TIMEOUT = 120.0  # each world's own limit, so a hung rendezvous fails its tests alone
 
 

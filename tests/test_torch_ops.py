@@ -16,6 +16,10 @@ from jpeglibrary_tpu.ops import decode_stage as ref_stage
 from jpeglibrary_tpu_torch.host.models import geometry as host_geometry
 from jpeglibrary_tpu_torch.ops import color, decode_stage, pipeline
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _gradient_noise(h, w, seed, sigma=30.0):
     rng = np.random.default_rng(seed)

@@ -12,6 +12,10 @@ torch = pytest.importorskip("torch")
 import jpeglibrary_tpu as jt
 import jpeglibrary_tpu_torch as jtt
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _gradient_noise(h, w, seed, sigma=30.0):
     rng = np.random.default_rng(seed)

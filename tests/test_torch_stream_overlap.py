@@ -25,6 +25,10 @@ import jpeglibrary_tpu_torch as jtt
 from jpeglibrary_tpu_torch.ops import kernels
 from jpeglibrary_tpu_torch.parallel import batch as port_batch
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 SCALES = [1.0, 0.5, 0.25, 0.125]
 
 

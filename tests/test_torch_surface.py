@@ -23,6 +23,10 @@ from jpeglibrary_tpu_torch.models import encoder as port_encoder
 from jpeglibrary_tpu_torch.models.decoder import quant_tables
 from jpeglibrary_tpu_torch.ops import kernels
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 
 def _image(h, w, seed, sigma=20.0):
     rng = np.random.default_rng(seed)

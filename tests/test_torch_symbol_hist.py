@@ -4,8 +4,12 @@ package: ``encode_stage.symbol_histograms_plain`` (K5's plain version) and
 arithmetic) against the JAX ``symbol_histograms_device``, jitted on the
 CPU, and the host gather ``dc_ac_symbol_frequencies``, on
 ``chip_smoke.k5_edge_cases`` (the batch the card holds K5 to) and on
-random batches; then K5's wrapper ``kernels.symbol_histograms``: its
-dispatch on the CPU and its errors.
+random batches; the same on component planes walked in MCU order in place
+(one plane at MCU (1, 1), (2, 1), (1, 2), (2, 2), and two planes whose
+chains stack, as ``full_step``'s chroma) against the JAX package's
+``_mcu_order_batch`` + ``symbol_histograms_device``, and the step's
+histograms against the JAX ``full_step``; then K5's wrapper
+``kernels.symbol_histograms``: its dispatch on the CPU and its errors.
 
 Every comparison is exact: the histograms are integer counts."""
 
@@ -22,9 +26,19 @@ import jax
 import jax.numpy as jnp
 
 from jpeglibrary_tpu.ops import encode_stage as ref_encode_stage
+from jpeglibrary_tpu.parallel import sharding as ref_sharding
+from jpeglibrary_tpu.syntax.quantization import (
+    STANDARD_CHROMINANCE_ZIGZAG,
+    STANDARD_LUMINANCE_ZIGZAG,
+)
 
 from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
 from jpeglibrary_tpu_torch.ops import _build, encode_stage, kernels
+from jpeglibrary_tpu_torch.parallel import sharding
+
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -187,6 +201,128 @@ def test_random_batches_match_jax_and_host(shape, lo, hi, share, seed):
                                         _tensor(pd)), want)
 
 
+def _plane_case(mcu, dtype, seed, n_planes=1, b=2, mcu_rows=3, mcu_cols=37):
+    """Random planes [b, mcu_rows v, mcu_cols h, 64] at an (h, v) MCU (the
+    luma's 37 MCUs at (2, 2) span two of the kernel's 32-MCU tiles, three
+    at (1, 1)), with n_valid and prev_dc for all n_planes x b chains."""
+    h, v = mcu
+    rng = np.random.default_rng(seed)
+    shape = (b, mcu_rows * v, mcu_cols * h, 64)
+    planes = []
+    for _ in range(n_planes):
+        x = rng.integers(-1200, 1200, size=shape).astype(dtype)
+        x[..., 1:] *= (rng.random(shape[:3] + (63,)) < 0.2).astype(dtype)
+        planes.append(x)
+    n = shape[1] * shape[2]
+    n_valid = rng.integers(0, n + 1, size=n_planes * b)
+    n_valid[0] = n
+    prev_dc = rng.integers(-2047, 2048, size=n_planes * b).astype(np.int32)
+    return planes, n_valid, prev_dc
+
+
+def _jax_walk(planes, mcu):
+    """The JAX package's MCU walk of each plane, the chains stacked as the
+    step's ``cat`` of its chroma stacked them."""
+    h, v = mcu
+    return np.concatenate([np.asarray(ref_sharding._mcu_order_batch(jnp.asarray(x), h, v, jnp))
+                           for x in planes])
+
+
+@pytest.mark.parametrize("version", ["plain", "model", "wrapper"])
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("mcu", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_planes_in_place_match_jax_walk(mcu, dtype, version):
+    """One component plane, walked in its MCU order where it lies, bin
+    for bin the JAX package's histograms of its ``_mcu_order_batch``
+    copy, with and without n_valid and prev_dc."""
+    (plane,), n_valid, prev_dc = _plane_case(mcu, dtype, seed=sum(mcu) * 7 + (dtype == np.int32))
+    flat = _jax_walk([plane], mcu)
+    for nv, pd in ((None, None), (n_valid, None), (None, prev_dc), (n_valid, prev_dc)):
+        got = VERSIONS[version](torch.from_numpy(plane), _tensor(nv), _tensor(pd), mcu=mcu)
+        _assert_equal(got, _jax_reference(flat, nv, pd))
+
+
+PLANE_CASES = {label: case for label, *case in SMOKE.k5_plane_cases()}
+
+
+@pytest.mark.parametrize("version", sorted(VERSIONS))
+@pytest.mark.parametrize("label", sorted(PLANE_CASES))
+def test_plane_cases_match_jax(label, version):
+    """``chip_smoke.k5_plane_cases``, the planes the card holds K5 to in
+    place: each version bin for bin the JAX package's histograms of the
+    planes' ``_mcu_order_batch`` copies, stacked."""
+    planes, n_valid, prev_dc, mcu = PLANE_CASES[label]
+    planes = planes if isinstance(planes, tuple) else (planes,)
+    blocks = tuple(torch.from_numpy(x) for x in planes)
+    got = VERSIONS[version](blocks if len(blocks) > 1 else blocks[0], _tensor(n_valid),
+                            _tensor(prev_dc), mcu=mcu)
+    _assert_equal(got, _jax_reference(_jax_walk(planes, mcu), n_valid, prev_dc))
+
+
+@pytest.mark.parametrize("version", ["plain", "model", "wrapper"])
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_two_planes_match_jax_cat(dtype, version):
+    """Two planes of one shape (the step's Cb and Cr): their chains stack,
+    B of the first and then B of the second, as JAX's cat of the two."""
+    planes, n_valid, prev_dc = _plane_case((1, 1), dtype, seed=11, n_planes=2, b=3,
+                                           mcu_rows=4, mcu_cols=150)
+    flat = _jax_walk(planes, (1, 1))
+    for nv, pd in ((None, None), (n_valid, prev_dc)):
+        got = VERSIONS[version](tuple(torch.from_numpy(x) for x in planes), _tensor(nv),
+                                _tensor(pd))
+        _assert_equal(got, _jax_reference(flat, nv, pd))
+
+
+def test_walk_is_the_jax_walk():
+    """``encode_stage.mcu_walk`` (the plain version's way in) is the JAX
+    ``_mcu_order_batch``, and K5's own walk (``k5_walk``, by its tile and
+    stage arithmetic) visits the same blocks in the same order, each DC
+    chained to the block before it in the walk."""
+    for mcu in ((1, 1), (2, 1), (1, 2), (2, 2), (3, 2), (4, 4)):
+        (plane,), _, _ = _plane_case(mcu, np.int16, seed=3, b=1, mcu_rows=2, mcu_cols=130)
+        want = _jax_walk([plane], mcu)
+        np.testing.assert_array_equal(encode_stage.mcu_walk(torch.from_numpy(plane), mcu).numpy(),
+                                      want)
+        pos, pred = encode_stage.k5_walk(*plane.shape[1:3], *mcu)
+        flat = plane.reshape(1, -1, 64)
+        np.testing.assert_array_equal(flat[:, pos.numpy()], want)
+        assert pred[0] == -1
+        np.testing.assert_array_equal(pred[1:].numpy(), pos[:-1].numpy())
+
+
+@pytest.mark.parametrize("version", ["plain", "model", "wrapper"])
+def test_step_histograms_match_jax_full_step(version):
+    """``_step``'s histograms, its luma and chroma counted on the planes
+    where its K2 wrote them, equal the JAX ``full_step``'s; and with an
+    identity ``chain_prev`` (every chain's DC before it its own last DC),
+    the sum of the JAX histograms of each chain with that block ahead of
+    it, less that block's own counts."""
+    rng = np.random.default_rng(4)
+    b, hb, wb = 2, 8, 16
+    y = rng.integers(-64, 64, size=(b, hb, wb, 64), dtype=np.int16)
+    cb, cr = (rng.integers(-32, 32, size=(b, hb // 2, wb // 2, 64), dtype=np.int16)
+              for _ in range(2))
+    args = (y, cb, cr, STANDARD_LUMINANCE_ZIGZAG.astype(np.int32),
+            STANDARD_CHROMINANCE_ZIGZAG.astype(np.int32))
+    want = np.asarray(jax.jit(ref_sharding.full_step)(*args)[2])
+    inputs = sharding._step_inputs(*args, "cpu")
+    _, requants, hists = sharding._step(*inputs, kernels.dequantize_idct_shift,
+                                        kernels.fdct_quantize, k5=VERSIONS[version])
+    np.testing.assert_array_equal(hists.numpy(), want)
+
+    lasts = []
+    _, _, chained = sharding._step(*inputs, kernels.dequantize_idct_shift,
+                                   kernels.fdct_quantize, k5=VERSIONS[version],
+                                   chain_prev=lambda last: lasts.append(last) or last)
+    (last,) = lasts
+    y_walk = _jax_walk([requants[0].numpy()], (2, 2))
+    c_walk = _jax_walk([q.numpy() for q in requants[1:]], (1, 1))
+    np.testing.assert_array_equal(last.numpy(), np.r_[y_walk[:, -1, 0], c_walk[:, -1, 0]])
+    luma = _jax_reference(y_walk, None, last.numpy()[:b])
+    chroma = _jax_reference(c_walk, None, last.numpy()[b:])
+    np.testing.assert_array_equal(chained.numpy(), np.stack([*luma, *chroma]))
+
+
 def test_wrapper_takes_the_plain_version_on_the_cpu(monkeypatch):
     """On CPU tensors the wrapper returns the plain version's result and
     launches nothing."""
@@ -194,7 +330,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu(monkeypatch):
     calls = []
     plain = encode_stage.symbol_histograms_plain
     monkeypatch.setattr(encode_stage, "symbol_histograms_plain",
-                        lambda *a: calls.append(a) or plain(*a))
+                        lambda *a, **kw: calls.append(a) or plain(*a, **kw))
     before = kernels.symbol_histograms.launches
     got = kernels.symbol_histograms(torch.from_numpy(blocks), _tensor(n_valid), _tensor(prev_dc))
     assert kernels.symbol_histograms.launches == before and len(calls) == 1

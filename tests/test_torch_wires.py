@@ -24,6 +24,10 @@ import jpeglibrary_tpu as jt
 import jpeglibrary_tpu_torch as jtt
 from jpeglibrary_tpu.models.progressive_encoder import encode_progressive_rgb
 
+from torch_reference_native import settle
+
+settle()  # the JAX package's native scanner, built once before any test
+
 SCALES = [1.0, 0.5, 0.25, 0.125]
 
 
