@@ -1,0 +1,11 @@
+"""``stats_pct.recompress``: the share of the complete steps' kernel time
+launched under the program's ``full_step.stats`` span: K5's two launches,
+the histograms' zero fills and their stack. Read from the device trace,
+each kernel tied to the innermost program span around its launch
+(``core/stages.py``)."""
+
+from jpegbench.core.stages import stage_pct
+
+
+def read(ctx):
+    return stage_pct(ctx.trace, ("full_step.stats",))

@@ -40,6 +40,7 @@ import torch
 
 from ..host.models.geometry import FrameGeometry, ceil_div
 from ..ops import color, decode_stage, encode_stage, kernels
+from ..ops._trace import span
 from ..ops.pipeline import transform_dense, transform_mcu, transform_mcu2
 from . import collectives
 
@@ -162,10 +163,15 @@ def full_step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, *, device):
     [64] zig-zag. Inputs not on ``device`` are copied there. Returns (rgb
     uint8 [B, H, W, 3], requant_y int16 [B, Hb, Wb, 64], hists int32
     [4, 256]: DC luma, AC luma, DC chroma, AC chroma), on ``device``. On
-    the card: 3 K1, 3 K2 and 2 K5 launches."""
-    rgb, requant, hists = _step(*_step_inputs(y_coeffs, cb_coeffs, cr_coeffs, qt_luma,
-                                              qt_chroma, device),
-                                kernels.dequantize_idct_shift, kernels.fdct_quantize)
+    the card: 3 K1, 3 K2 and 2 K5 launches.
+
+    Spans (``ops._trace.span``, open only while a torch profiler runs or
+    the metrics table is enabled): ``full_step`` around the whole call,
+    and inside it :func:`_step`'s stage spans."""
+    with span("full_step"):
+        rgb, requant, hists = _step(*_step_inputs(y_coeffs, cb_coeffs, cr_coeffs, qt_luma,
+                                                  qt_chroma, device),
+                                    kernels.dequantize_idct_shift, kernels.fdct_quantize)
     return rgb, requant[0], hists
 
 
@@ -192,35 +198,48 @@ def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1, k2, chain_prev
     The histograms count B luma chains, then B Cb and B Cr chains, each
     from DC 0; ``chain_prev``, where given, maps the last DC of each of
     those 3B chains ([3B] int32) to the DC before its first block (the
-    sharded step's boundary exchange)."""
+    sharded step's boundary exchange).
+
+    Every op the step runs lies in one of five spans, in this order:
+    ``full_step.decode`` (the three K1 launches, ``blocks_to_plane``,
+    ``upsample_duplicate``, ``clamp_to_uint8``), ``full_step.to_rgb``
+    (``color.ycbcr_to_rgb`` and the RGB stack), ``full_step.to_ycbcr``
+    (``color.rgb_to_ycbcr``), ``full_step.fdct`` (the three K2 launches)
+    and ``full_step.stats`` (``chain_prev``, the two K5 calls and the
+    histograms' stack)."""
     b = y_coeffs.shape[0]
 
-    # The decode transform.
-    y8, cb8, cr8 = (
-        decode_stage.clamp_to_uint8(_component_plane(c, q, up, k1))
-        for c, q, up in ((y_coeffs, qt_luma, 1), (cb_coeffs, qt_chroma, 2),
-                         (cr_coeffs, qt_chroma, 2))
-    )
-    r, g, bl = color.ycbcr_to_rgb(y8, cb8, cr8)
-    rgb = torch.stack([r, g, bl], dim=-1)
+    with span("full_step.decode"):
+        y8, cb8, cr8 = (
+            decode_stage.clamp_to_uint8(_component_plane(c, q, up, k1))
+            for c, q, up in ((y_coeffs, qt_luma, 1), (cb_coeffs, qt_chroma, 2),
+                             (cr_coeffs, qt_chroma, 2))
+        )
+    with span("full_step.to_rgb"):
+        r, g, bl = color.ycbcr_to_rgb(y8, cb8, cr8)
+        rgb = torch.stack([r, g, bl], dim=-1)
 
     # The re-encode transform, all three components; K2 boxes the chroma.
-    y2, cb2, cr2 = color.rgb_to_ycbcr(r, g, bl)
-    requant_y = _fdct_quantize_batch(y2, qt_luma, k2=k2)
-    requant_cb = _fdct_quantize_batch(cb2, qt_chroma, hs=2, vs=2, k2=k2)
-    requant_cr = _fdct_quantize_batch(cr2, qt_chroma, hs=2, vs=2, k2=k2)
+    with span("full_step.to_ycbcr"):
+        y2, cb2, cr2 = color.rgb_to_ycbcr(r, g, bl)
+    with span("full_step.fdct"):
+        requant_y = _fdct_quantize_batch(y2, qt_luma, k2=k2)
+        requant_cb = _fdct_quantize_batch(cb2, qt_chroma, hs=2, vs=2, k2=k2)
+        requant_cr = _fdct_quantize_batch(cr2, qt_chroma, hs=2, vs=2, k2=k2)
 
     # The symbol statistics, on the planes where K2 wrote them: the luma in
     # its 2x2 MCU walk, each chroma component a chain of its own. The last
     # block of each walk is the plane's bottom-right one.
-    prev_l = prev_c = None
-    if chain_prev is not None:
-        last = torch.cat([q[:, -1, -1, 0] for q in (requant_y, requant_cb, requant_cr)])
-        prev = chain_prev(last.to(torch.int32))
-        prev_l, prev_c = prev[:b], prev[b:]
-    dc_l, ac_l = k5(requant_y, prev_dc=prev_l, mcu=(2, 2))
-    dc_c, ac_c = k5((requant_cb, requant_cr), prev_dc=prev_c)
-    return rgb, (requant_y, requant_cb, requant_cr), torch.stack([dc_l, ac_l, dc_c, ac_c])
+    with span("full_step.stats"):
+        prev_l = prev_c = None
+        if chain_prev is not None:
+            last = torch.cat([q[:, -1, -1, 0] for q in (requant_y, requant_cb, requant_cr)])
+            prev = chain_prev(last.to(torch.int32))
+            prev_l, prev_c = prev[:b], prev[b:]
+        dc_l, ac_l = k5(requant_y, prev_dc=prev_l, mcu=(2, 2))
+        dc_c, ac_c = k5((requant_cb, requant_cr), prev_dc=prev_c)
+        hists = torch.stack([dc_l, ac_l, dc_c, ac_c])
+    return rgb, (requant_y, requant_cb, requant_cr), hists
 
 
 def _prev_across(mesh, dim: str):
