@@ -3,6 +3,7 @@
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --phase device_scan   # the device scan (K3) alone
     python3 chip_smoke.py --phase full_step     # the full step (K5's times and parts) alone
+    python3 chip_smoke.py --phase color_round_trip  # K6 alone
 
 Drives the port's main paths on the card at the size users run: the
 serving decode, a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
@@ -118,7 +119,7 @@ layer in spawned ranks. In order:
    4:2:2 streams. ``--phase device_scan`` runs this phase alone after the
    build, on sources it makes itself;
 15. full step: ``full_step`` on the slice's coefficient planes (Y
-   [8, 256, 256, 64] int16), 3 K1, 3 K2 and 2 K5 launches, its RGB (2 levels on
+   [8, 256, 256, 64] int16), 3 K1, 1 K6, 3 K2 and 2 K5 launches, its RGB (2 levels on
    <= 1e-4) and its requantised Y, Cb and Cr (1 on <= 1e-3) against the
    step with the plain versions, the chroma K2 calls also against their
    plain version on the same stacked planes, its four histograms equal to
@@ -138,6 +139,17 @@ layer in spawned ranks. In order:
    count of K5 records the profiler keeps of 5 launches, and
    ``tools/k5_probe.py``'s parts of K5 on the step's planes (``k5_parts``).
    ``--phase full_step`` runs this phase alone after the build;
+15b. colour round trip: K6 (``kernels.color_round_trip``,
+   ``csrc/color_round_trip.cu``) against its plain version
+   (``color.round_trip_420_plain``) on K1-range int32 samples (-300 to
+   400, and the int32 extremes) at both benchmark cells' shapes (4 images
+   of 512 x 512 luma blocks, 256 of 48 x 64) and two ragged ones (MCU
+   rows of 33 and 13 MCUs), 0 bytes differing in the RGB and the three
+   planes; K6 timed in CUDA events with the L2 flushed and warm against
+   its 12 B a pixel bound, beside the plain chain; its record carries
+   the K6 launches of phase 15's ``full_step``.
+   ``--phase color_round_trip`` runs this phase alone after the build
+   (its record's launches then None);
 16. mesh: the mesh layer (``parallel/sharding.py``, ``parallel/distributed.py``
    over ``torch.distributed``) in ranks spawned from here after the build,
    each rank holding each path to its single-device counterpart on the card
@@ -173,8 +185,8 @@ drives and reads them just after. Any failure raises and the script
 exits non-zero. The line before the last is a JSON record of the
 kernels (K1, one entry per K1 variant, K2, one entry per K2 box of 9,
 K3 at each restart interval and on the small ri 0 stream, the K1 and K2
-calls of ``full_step``, K4, and K5 on ``full_step``'s luma: launches on
-the main paths, kernel
+calls of ``full_step``, K4, K5 on ``full_step``'s luma, and K6 at the
+16.8 MP cell's shape: launches on the main paths, kernel
 time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
@@ -203,6 +215,17 @@ K4_SOURCE = "jpeglibrary_tpu_torch/csrc/butterfly_idct.cu"
 K4_REPLACES = "jpeglibrary_tpu/ops/dct.py:167"  # idct8x8, the XLA butterfly of decode(xp=jnp)
 K5_SOURCE = "jpeglibrary_tpu_torch/csrc/symbol_hist.cu"
 K5_REPLACES = "jpeglibrary_tpu/ops/encode_stage.py:330"  # symbol_histograms_device: XLA, not Pallas
+K6_SOURCE = "jpeglibrary_tpu_torch/csrc/color_round_trip.cu"
+K6_REPLACES = "jpeglibrary_tpu/parallel/sharding.py:70"  # full_step's colour ops: XLA, no kernel
+# K6's shapes (batch, luma block rows, luma block columns): the benchmark's
+# two cells, and MCU rows of 33 and 13 MCUs, whose last strip is ragged.
+K6_SHAPES = ((4, 512, 512), (256, 48, 64), (3, 6, 66), (2, 10, 26))
+# K6's integer operations a luma pixel as ops/color.py writes them (a clamp
+# is two): the luma clamp, three adds with clamps, three products, two adds
+# and a shift for each of y, cb and cr; and a 2x2 cell's: two clamps, the
+# two -128s, and 3 + 3 + 5 for cr_r, cb_b and g_off.
+K6_OPS_PER_PIXEL = 2 + 3 * 3 + 3 * 7
+K6_OPS_PER_CELL = 2 * 2 + 2 + 3 + 3 + 5
 # K4's float operations per block: 16 one-dimensional passes of 12
 # multiplies, 25 adds and 7 subtracts, and per sample the dequantize
 # multiply, the conversion, the 1/8 scale, the rounding and the level shift.
@@ -387,6 +410,7 @@ def reset_counts():
     kernels.huffman_scan.launches = 0
     kernels.butterfly_idct_shift.launches = 0
     kernels.symbol_histograms.launches = 0
+    kernels.color_round_trip.launches = 0
 
 
 def check_close(got, want, what, share=1e-4):
@@ -2076,14 +2100,14 @@ def k5_parts(step_k5, flush):
 def phase_full_step(inputs, dev):
     """``full_step`` on the slice's images' coefficient planes at full width
     (Y [8, 256, 256, 64] int16, chroma [8, 128, 128, 64]): K1 and K2 launched
-    3 times each, RGB and the requantised Y, Cb and Cr against the step
+    3 times each and K6 once, RGB and the requantised Y, Cb and Cr against the step
     with their plain versions on the card, the chroma K2 calls against
     their plain version on the step's own planes, the four histograms
     equal to the host gather of the step's own requantised blocks, K5
     launched twice and equal to its plain version on the step's own
     statistics inputs and on :func:`k5_edge_cases`. Then the step's time,
     its kernels, and records for its K1 and K2 calls on the luma and its
-    K5 call on the luma."""
+    K5 call on the luma, returned with the step's K6 launches."""
     from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
     from jpeglibrary_tpu_torch.ops import color, decode_stage, encode_stage, kernels
     from jpeglibrary_tpu_torch.parallel import full_step, sharding
@@ -2094,13 +2118,14 @@ def phase_full_step(inputs, dev):
     rgb, requant, hists = full_step(*args, device=dev)
     torch.cuda.synchronize()
     k1_launches = kernels.dequantize_idct_shift.launches
+    k6_launches = kernels.color_round_trip.launches
     k2_launches = kernels.fdct_quantize.launches
     k5_launches = kernels.symbol_histograms.launches
     log(f"full step: full_step over {y.shape[0]} images, Y {tuple(y.shape)} chroma "
-        f"{tuple(cb.shape)} int16: K1 launches {k1_launches}, K2 launches {k2_launches}, "
-        f"K5 launches {k5_launches}")
-    check((k1_launches, k2_launches, k5_launches) == (3, 3, 2),
-          ("full_step launches", k1_launches, k2_launches, k5_launches))
+        f"{tuple(cb.shape)} int16: K1 launches {k1_launches}, K6 launches {k6_launches}, "
+        f"K2 launches {k2_launches}, K5 launches {k5_launches}")
+    check((k1_launches, k6_launches, k2_launches, k5_launches) == (3, 1, 3, 2),
+          ("full_step launches", k1_launches, k6_launches, k2_launches, k5_launches))
     b = y.shape[0]
     check(tuple(rgb.shape) == (b, SIZE, SIZE, 3) and rgb.dtype == torch.uint8, rgb.shape)
     check(requant.shape == args[0].shape and requant.dtype == torch.int16, requant.shape)
@@ -2123,7 +2148,8 @@ def phase_full_step(inputs, dev):
     check(torch.equal(rgb_, rgb) and torch.equal(requants[0], requant)
           and torch.equal(hists_, hists), "_step's outputs differ from full_step's")
     plain_rgb, plain_requants, plain_hists = sharding._step(
-        *args, k1_plain, k2_plain_call, k5=encode_stage.symbol_histograms_plain)
+        *args, k1_plain, k2_plain_call, k5=encode_stage.symbol_histograms_plain,
+        k6=color.round_trip_420_plain)
     check_close(rgb.cpu().numpy(), plain_rgb.cpu().numpy(), "full step: RGB vs plain")
     for name, got_q, want_q in zip(("Y", "Cb", "Cr"), requants, plain_requants):
         check(got_q.shape == want_q.shape and got_q.dtype == torch.int16, (name, got_q.shape))
@@ -2296,7 +2322,71 @@ def phase_full_step(inputs, dev):
         "name": "symbol_histograms[full_step]", "route": "cuda", "source": K5_SOURCE,
         "replaces": K5_REPLACES, "launches": k5_launches, "max_abs_err": k5_diff, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    return records
+    return records, k6_launches
+
+
+def k6_bound(n_pixels):
+    """K6's bound: per luma pixel its int32 luma sample and a quarter of
+    its two int32 chroma samples in, 3 B of RGB and 3 B of planes out
+    (12 B); the integer operations of ``ops/color.py``'s formulas."""
+    return bound(12 * n_pixels, 0, n_pixels * K6_OPS_PER_PIXEL + n_pixels // 4 * K6_OPS_PER_CELL)
+
+
+def k6_samples(b, hb, wb, dev, seed):
+    """K1-range int32 samples of a batch of 4:2:0 images, luma [b, hb, wb,
+    8, 8] and two chroma [b, hb/2, wb/2, 8, 8]: uniform in [-300, 400], with
+    the int32 extremes and the clamp's edges planted in each."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for shape in ((b, hb, wb, 8, 8), (b, hb // 2, wb // 2, 8, 8), (b, hb // 2, wb // 2, 8, 8)):
+        x = torch.randint(-300, 401, shape, generator=g, device=dev, dtype=torch.int32)
+        flat = x.view(-1)
+        edges = torch.tensor([-2**31, 2**31 - 1, -1, 0, 255, 256], dtype=torch.int32, device=dev)
+        flat[:edges.numel()] = edges
+        out.append(x)
+    return out
+
+
+def phase_color_round_trip(dev, launches=None):
+    """K6 against its plain version at :data:`K6_SHAPES`, 0 bytes
+    differing; its time against its bound beside the plain chain's, in CUDA
+    events, with the L2 flushed and warm. Returns K6's record at the 16.8
+    MP cell's shape, with ``launches`` those of the full-step phase's
+    ``full_step`` (None when this phase runs alone)."""
+    from jpeglibrary_tpu_torch.ops import color, kernels
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    record = None
+    for i, (b, hb, wb) in enumerate(K6_SHAPES):
+        samples = k6_samples(b, hb, wb, dev, seed=60 + i)
+        got = kernels.color_round_trip(*samples)
+        want = color.round_trip_420_plain(*samples)
+        torch.cuda.synchronize()
+        n_diff = sum(int((g != w).sum()) for g, w in zip(got, want))
+        n_bytes = sum(w.numel() for w in want)
+        label = f"{b} x {hb} x {wb} luma blocks ({wb // 2} MCUs a row)"
+        log(f"K6 {label}: {n_diff}/{n_bytes} output bytes differ from the plain version")
+        check(n_diff == 0 and all(g.shape == w.shape and g.dtype == w.dtype
+                                  for g, w in zip(got, want)), ("K6 differs", label, n_diff))
+        del got, want
+        n_pixels = b * hb * wb * 64
+        b_ms, b_by = k6_bound(n_pixels)
+        fns = (lambda: color.round_trip_420_plain(*samples),
+               lambda: kernels.color_round_trip(*samples))
+        timings = {"L2 flushed": device_ms(*fns, flush=flush), "warm": device_ms(*fns)}
+        for what, (p_ms, k_ms) in timings.items():
+            log(f"K6 {label}, {what}: {k_ms:.6f} ms ({b_ms / k_ms:.1%} of its {b_by} bound "
+                f"{b_ms:.6f} ms, {12 * n_pixels / k_ms / 1e9:.3f} TB/s), plain {p_ms:.6f} ms "
+                f"(CUDA events, median of {TIMED_RUNS} in turns)")
+        if record is None:
+            p_ms, k_ms = timings["L2 flushed"]
+            record = {"name": "color_round_trip[full_step]", "route": "cuda",
+                      "source": K6_SOURCE, "replaces": K6_REPLACES, "launches": launches,
+                      "max_abs_err": n_diff, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None}
+        del samples
+    del flush
+    return record
 
 
 MESH_TIMEOUT_S = 180  # each world's own limit; a hung rendezvous fails the phase
@@ -2687,16 +2777,17 @@ def step_phase_only(dev):
     datas = [encode_420(synth_image(seed, SIZE), 75) for seed in range(N_IMAGES)]
     log(f"full step only: {N_IMAGES} sources {SIZE}x{SIZE} encoded, "
         f"{time.perf_counter() - t0:.3f} s")
-    return list(phase_full_step(step_inputs(datas), dev).values())
+    return list(phase_full_step(step_inputs(datas), dev)[0].values())
 
 
 def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    parser.add_argument("--phase", choices=("all", "device_scan", "full_step"), default="all",
-                        help="run every phase (the default), or the device scan phase or the "
-                             "full-step phase alone")
+    parser.add_argument("--phase", choices=("all", "device_scan", "full_step",
+                                            "color_round_trip"), default="all",
+                        help="run every phase (the default), or the device scan, the full-step "
+                             "or the colour round trip phase alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2708,6 +2799,8 @@ def main(argv=None):
         kernel_records = scan_phase_only(dev)
     elif args.phase == "full_step":
         kernel_records = step_phase_only(dev)
+    elif args.phase == "color_round_trip":
+        kernel_records = [phase_color_round_trip(dev)]
     else:
         kernel_records = run_all(dev)
     print(json.dumps({"kernels": kernel_records}))
@@ -2732,7 +2825,8 @@ def run_all(dev):
     phase_fancy_u16(sl, dev)
     stripe_launches = phase_stripes(sl, dev)
     scan_records = phase_device_scan(sl["sources"], sl["datas"], dev)
-    step_records = phase_full_step(step_inputs(sl["datas"]), dev)
+    step_records, k6_launches = phase_full_step(step_inputs(sl["datas"]), dev)
+    record_k6 = phase_color_round_trip(dev, k6_launches)
     phase_mesh(sl)
     record_k4 = phase_golden(sl, dev)
     log("stream MP/s by (group, device_workers): "
@@ -2742,7 +2836,7 @@ def run_all(dev):
         f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}; K5 on "
         f"full_step {step_records['k5']['launches']}")
     return [*records.values(), record_k2, *box_records.values(), *scan_records.values(),
-            *step_records.values(), record_k4]
+            *step_records.values(), record_k6, record_k4]
 
 
 if __name__ == "__main__":

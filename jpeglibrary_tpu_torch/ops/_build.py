@@ -94,6 +94,15 @@ _K5_ARGS = [
     ctypes.c_void_p,                   # out [2, 256]
     ctypes.c_void_p,                   # cudaStream_t
 ]
+_K6_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p,  # y, cb samples
+    ctypes.c_void_p, ctypes.c_void_p,  # cr samples, rgb
+    ctypes.c_void_p, ctypes.c_void_p,  # y, cb planes
+    ctypes.c_void_p,                   # cr plane
+    ctypes.c_int64, ctypes.c_int64,    # mcu_rows, mcus_per_row
+    ctypes.c_void_p,                   # constants (host)
+    ctypes.c_void_p,                   # cudaStream_t
+]
 _ENTRY_POINTS = {
     "jpx_dequant_idct_i32": _K1_ARGS,
     "jpx_dequant_idct_i16": _K1_ARGS,
@@ -105,6 +114,7 @@ _ENTRY_POINTS = {
     "jpx_butterfly_idct_i32": _K4_ARGS,
     "jpx_symbol_histograms_i16": _K5_ARGS,
     "jpx_symbol_histograms_i32": _K5_ARGS,
+    "jpx_color_round_trip": _K6_ARGS,
 }
 
 

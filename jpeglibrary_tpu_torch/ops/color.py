@@ -2,12 +2,20 @@
 
 Port of ``jpeglibrary_tpu/ops/color.py``, both directions, bit-exact: the
 same constants, int32 products, arithmetic ``>>`` and clamps.
+
+:func:`round_trip_420_plain` is the plain version of K6
+(``kernels.color_round_trip``): ``full_step``'s chain from K1's 4:2:0
+samples to the RGB output and K2's planes, composed of the functions here
+and in ``decode_stage``. :data:`ROUND_TRIP_CONSTANTS` are the constants the
+kernel is handed.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import decode_stage
 
 _SHIFT = 16
 _ONE_HALF = 1 << (_SHIFT - 1)
@@ -67,3 +75,33 @@ def rgb_to_ycbcr(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     cb = (_CB_R * r + _CB_G * g + (_CB_B * b + fudge)) >> _SHIFT
     cr = ((_CB_B * r + fudge) + _CR_G * g + _CR_B * b) >> _SHIFT
     return y.to(torch.uint8), cb.to(torch.uint8), cr.to(torch.uint8)
+
+
+def round_trip_420_plain(y_samples: torch.Tensor, cb_samples: torch.Tensor,
+                         cr_samples: torch.Tensor):
+    """K1's int32 4:2:0 samples, luma [B, Hb, Wb, 8, 8] and each chroma
+    [B, Hb/2, Wb/2, 8, 8], -> (rgb uint8 [B, H, W, 3], y, cb, cr uint8
+    [B, H, W]): each component laid out as a plane, the chroma duplicated
+    2x2, clamped to [0, 255], converted to RGB and back to YCbCr, in the
+    order of the JAX step (``jpeglibrary_tpu/parallel/sharding.py:70-117``)."""
+    y8, cb8, cr8 = (
+        decode_stage.clamp_to_uint8(
+            decode_stage.upsample_duplicate(decode_stage.blocks_to_plane(s), up, up))
+        for s, up in ((y_samples, 1), (cb_samples, 2), (cr_samples, 2))
+    )
+    r, g, b = ycbcr_to_rgb(y8, cb8, cr8)
+    return (torch.stack([r, g, b], dim=-1), *rgb_to_ycbcr(r, g, b))
+
+
+# K6's constants, in the order of ``csrc/color_round_trip.cu``'s
+# ``RoundTripConstants``: the decode's three chroma terms with the -128 of
+# each chroma sample folded into their offsets, then the encode's
+# products and offsets.
+ROUND_TRIP_CONSTANTS = (
+    _D1, _ONE_HALF - 128 * _D1,                         # cr_r
+    _D3, _ONE_HALF - 128 * _D3,                         # cb_b
+    _D4, _D2, _ONE_HALF - 128 * (_D4 + _D2),            # g_off
+    _Y_R, _Y_G, _Y_B, _ONE_HALF,                        # y
+    _CB_R, _CB_G, _CB_B, _CBCR_OFFSET + _ONE_HALF - 1,  # cb
+    _CR_G, _CR_B,                                       # cr (its R product is _CB_B)
+)

@@ -1,4 +1,4 @@
-"""The port's five kernels and their wrappers.
+"""The port's six kernels and their wrappers.
 
 K1, the decode transform: dequantize + un-zigzag + 2-D IDCT + round +
 level shift over a batch of 8x8 blocks. Port of the decode half of
@@ -73,6 +73,16 @@ through shared memory by bulk copies, a thread per block walking the set
 bits of its non-zero mask, bins per warp in shared memory) and takes the
 plain version (``encode_stage.symbol_histograms_plain``) only for a CPU
 tensor; the results are integer sums and equal bit for bit.
+
+K6, ``full_step``'s colour round trip: K1's int32 4:2:0 samples to the
+step's RGB output and K2's three uint8 planes in one pass (layout, 2x2
+chroma duplication, clamp, YCbCr -> RGB, RGB -> YCbCr). It replaces no
+TPU kernel: the JAX step leaves these ops to XLA, which fuses them
+(``jpeglibrary_tpu/parallel/sharding.py:70-117``).
+:func:`color_round_trip` launches ``csrc/color_round_trip.cu`` for CUDA
+tensors and takes the plain version (``color.round_trip_420_plain``, the
+same chain in plain ops) only for CPU tensors; the two equal byte for
+byte.
 """
 
 from __future__ import annotations
@@ -87,7 +97,7 @@ import torch
 
 from ..host.ops.decode_stage import fused_transform_matrix, scaled_folded_matrix
 from ..host.ops.encode_stage import fdct_zigzag_matrix
-from . import _build, decode_stage, device_scan, encode_stage
+from . import _build, color, decode_stage, device_scan, encode_stage
 
 
 @functools.lru_cache(maxsize=16)
@@ -531,3 +541,72 @@ def symbol_histograms(blocks, n_valid: Optional[torch.Tensor] = None,
 
 
 symbol_histograms.launches = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _round_trip_constants():
+    """``color.ROUND_TRIP_CONSTANTS`` as the int32 array K6's C entry copies
+    into its launch."""
+    return (ctypes.c_int32 * len(color.ROUND_TRIP_CONSTANTS))(*color.ROUND_TRIP_CONSTANTS)
+
+
+def color_round_trip(y_samples: torch.Tensor, cb_samples: torch.Tensor,
+                     cr_samples: torch.Tensor):
+    """K1's int32 samples of a batch of 4:2:0 images, luma [B, Hb, Wb, 8,
+    8] and each chroma [B, Hb/2, Wb/2, 8, 8] (Hb and Wb even) -> (rgb
+    uint8 [B, H, W, 3], y, cb, cr uint8 [B, H, W]), H = 8 Hb, W = 8 Wb:
+    the chroma duplicated 2x2, every sample clamped to [0, 255], the
+    fixed-point YCbCr -> RGB and RGB -> YCbCr of ``ops/color.py``. The
+    RGB is ``full_step``'s output, the three planes what K2 takes.
+
+    On CPU tensors it runs the plain version,
+    ``color.round_trip_420_plain``; on CUDA tensors it launches
+    ``csrc/color_round_trip.cu``, or raises. Raises on any dtype but
+    int32, on a shape that is not 4:2:0 blocks (chroma not [B, Hb/2,
+    Wb/2, 8, 8], Hb or Wb odd) and on non-contiguous samples or samples
+    that do not start on a 16-byte boundary.
+    ``color_round_trip.launches`` counts the kernel's launches."""
+    samples = (y_samples, cb_samples, cr_samples)
+    for name, s in zip(("y", "cb", "cr"), samples):
+        if s.dtype != torch.int32:
+            raise TypeError(f"{name} samples must be int32, got {s.dtype}")
+        if s.dim() != 5 or tuple(s.shape[-2:]) != (8, 8):
+            raise ValueError(f"{name} samples must be [B, Hb, Wb, 8, 8] blocks, got "
+                             f"{tuple(s.shape)}")
+        if not s.is_contiguous():
+            raise ValueError(f"{name} samples must be contiguous")
+        if s.data_ptr() % 16:  # the kernel loads 16 bytes at a time
+            raise ValueError(f"{name} samples must start on a 16-byte boundary")
+        if s.device != y_samples.device:
+            raise ValueError(f"{name} samples on {s.device}, luma on {y_samples.device}")
+    b, hb, wb = y_samples.shape[:3]
+    if hb % 2 or wb % 2:
+        raise ValueError(f"{hb} x {wb} luma blocks are no whole 4:2:0 MCUs")
+    for name, s in (("cb", cb_samples), ("cr", cr_samples)):
+        if tuple(s.shape[:3]) != (b, hb // 2, wb // 2):
+            raise ValueError(f"{name} samples must be [{b}, {hb // 2}, {wb // 2}, 8, 8] "
+                             f"(4:2:0), got {tuple(s.shape)}")
+    device = y_samples.device
+    if device.type == "cpu":
+        return color.round_trip_420_plain(*samples)
+    if device.type != "cuda":
+        raise ValueError(f"no K6 kernel for device {device}")
+
+    h, w = hb * 8, wb * 8
+    rgb = torch.empty((b, h, w, 3), dtype=torch.uint8, device=device)
+    planes = [torch.empty((b, h, w), dtype=torch.uint8, device=device) for _ in range(3)]
+    if rgb.numel() == 0:
+        return (rgb, *planes)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        err = lib.jpx_color_round_trip(
+            *(s.data_ptr() for s in samples), rgb.data_ptr(), *(p.data_ptr() for p in planes),
+            b * hb // 2, wb // 2, ctypes.addressof(_round_trip_constants()),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K6 launch failed: CUDA error {err}")
+    count_launch(color_round_trip)
+    return (rgb, *planes)
+
+
+color_round_trip.launches = 0

@@ -23,12 +23,15 @@ The single-device part: ``full_step``, the package's flagship device step
 (the decode transform of a batch of 4:2:0 images, the full re-encode
 transform and the true Huffman symbol statistics), ``assemble_stripes``
 and ``batched_transform_rgb``. The decode half runs K1
-(``kernels.dequantize_idct_shift``), the re-encode K2
-(``kernels.fdct_quantize``, which fuses the chroma's 2x2 box), the
-statistics ``encode_stage.symbol_histograms_device`` (K5,
+(``kernels.dequantize_idct_shift``), the colour round trip K6
+(``kernels.color_round_trip``: K1's samples to the RGB output and K2's
+uint8 planes), the re-encode K2 (``kernels.fdct_quantize``, which fuses
+the chroma's 2x2 box), the statistics
+``encode_stage.symbol_histograms_device`` (K5,
 ``kernels.symbol_histograms``, on the requantised int16 planes where K2
-wrote them, walked in MCU order in place); the
-sharded forms run the same kernels on each rank's device.
+wrote them, walked in MCU order in place): 3 K1, 1 K6, 3 K2 and 2 K5
+launches a step. The sharded forms run the same kernels on each rank's
+device.
 """
 
 from __future__ import annotations
@@ -142,14 +145,6 @@ def _fdct_quantize_batch(planes: torch.Tensor, qt_zz: torch.Tensor, *, hs: int =
     return out.reshape(b, hb, wb, 64)
 
 
-def _component_plane(coeffs: torch.Tensor, qt_zz: torch.Tensor, up: int, k1) -> torch.Tensor:
-    """One component's decode: [B, Hb, Wb, 64] zig-zag coefficients -> K1
-    (one launch for the batch) -> int32 [B, Hb*8*up, Wb*8*up] samples,
-    duplicated ``up`` times each way."""
-    samples = k1(coeffs.contiguous(), qt_zz, 128)
-    return decode_stage.upsample_duplicate(decode_stage.blocks_to_plane(samples), up, up)
-
-
 def full_step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, *, device):
     """The flagship device step over a batch of 4:2:0 images, on
     ``device``: the decode transform (dequantize + IDCT + level shift,
@@ -163,7 +158,7 @@ def full_step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, *, device):
     [64] zig-zag. Inputs not on ``device`` are copied there. Returns (rgb
     uint8 [B, H, W, 3], requant_y int16 [B, Hb, Wb, 64], hists int32
     [4, 256]: DC luma, AC luma, DC chroma, AC chroma), on ``device``. On
-    the card: 3 K1, 3 K2 and 2 K5 launches.
+    the card: 3 K1, 1 K6, 3 K2 and 2 K5 launches.
 
     Spans (``ops._trace.span``, open only while a torch profiler runs or
     the metrics table is enabled): ``full_step`` around the whole call,
@@ -186,12 +181,13 @@ def _step_inputs(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, device):
 
 
 def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1, k2, chain_prev=None,
-          k5=encode_stage.symbol_histograms_device):
+          k5=encode_stage.symbol_histograms_device, k6=kernels.color_round_trip):
     """:func:`full_step` on tensors of one device, with K1's and K2's
     wrappers (or functions of their signatures: their plain versions, the
     yardstick ``chip_smoke.py`` holds the step to on the card) as ``k1``
-    and ``k2``, and the symbol statistics as ``k5`` (through K5's wrapper,
-    or ``encode_stage.symbol_histograms_plain``). Returns (rgb,
+    and ``k2``, the symbol statistics as ``k5`` (through K5's wrapper, or
+    ``encode_stage.symbol_histograms_plain``) and the colour round trip as
+    ``k6`` (K6's wrapper, or ``color.round_trip_420_plain``). Returns (rgb,
     (requant_y, requant_cb, requant_cr), hists): the step's outputs with
     the requantised chroma it counts besides.
 
@@ -200,28 +196,20 @@ def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1, k2, chain_prev
     those 3B chains ([3B] int32) to the DC before its first block (the
     sharded step's boundary exchange).
 
-    Every op the step runs lies in one of five spans, in this order:
-    ``full_step.decode`` (the three K1 launches, ``blocks_to_plane``,
-    ``upsample_duplicate``, ``clamp_to_uint8``), ``full_step.to_rgb``
-    (``color.ycbcr_to_rgb`` and the RGB stack), ``full_step.to_ycbcr``
-    (``color.rgb_to_ycbcr``), ``full_step.fdct`` (the three K2 launches)
-    and ``full_step.stats`` (``chain_prev``, the two K5 calls and the
+    Every op the step runs lies in one of four spans, in this order:
+    ``full_step.decode`` (the three K1 launches), ``full_step.to_rgb``
+    (K6: the samples to the RGB output and back to the YCbCr planes of the
+    re-encode), ``full_step.fdct`` (the three K2 launches) and
+    ``full_step.stats`` (``chain_prev``, the two K5 calls and the
     histograms' stack)."""
     b = y_coeffs.shape[0]
 
     with span("full_step.decode"):
-        y8, cb8, cr8 = (
-            decode_stage.clamp_to_uint8(_component_plane(c, q, up, k1))
-            for c, q, up in ((y_coeffs, qt_luma, 1), (cb_coeffs, qt_chroma, 2),
-                             (cr_coeffs, qt_chroma, 2))
-        )
+        samples = [k1(c.contiguous(), q, 128) for c, q in (
+            (y_coeffs, qt_luma), (cb_coeffs, qt_chroma), (cr_coeffs, qt_chroma))]
     with span("full_step.to_rgb"):
-        r, g, bl = color.ycbcr_to_rgb(y8, cb8, cr8)
-        rgb = torch.stack([r, g, bl], dim=-1)
-
+        rgb, y2, cb2, cr2 = k6(*samples)
     # The re-encode transform, all three components; K2 boxes the chroma.
-    with span("full_step.to_ycbcr"):
-        y2, cb2, cr2 = color.rgb_to_ycbcr(r, g, bl)
     with span("full_step.fdct"):
         requant_y = _fdct_quantize_batch(y2, qt_luma, k2=k2)
         requant_cb = _fdct_quantize_batch(cb2, qt_chroma, hs=2, vs=2, k2=k2)
@@ -260,7 +248,7 @@ def make_sharded_full_step(mesh):
     """:func:`full_step` over ``mesh``: the batch over ``data`` and the luma
     block rows over ``stripe`` (the chroma rows follow at half), as JAX's
     ``P("data", "stripe")``. Each rank runs the step on its block on its
-    own device (3 K1, 3 K2 and 2 K5 launches); at each stripe boundary the DC
+    own device (3 K1, 1 K6, 3 K2 and 2 K5 launches); at each stripe boundary the DC
     predictor chains (each image's luma, Cb and Cr) take the previous
     stripe's last DC, and the histograms are all-reduced over the mesh.
 

@@ -318,7 +318,7 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     sources = [smoke.synth_image(s, 32) for s in range(2)]
     datas = [smoke.encode_420(rgb, 75) for rgb in sources]
     scan = smoke.phase_device_scan(sources, datas, torch.device("cpu"))
-    step = smoke.phase_full_step(smoke.step_inputs(datas), torch.device("cpu"))
+    step, k6_launches = smoke.phase_full_step(smoke.step_inputs(datas), torch.device("cpu"))
     assert set(scan) == {0, 1, 2, "small"}
     assert [r["name"] for r in step.values()] == ["dequantize_idct_shift[full_step]",
                                                   "fdct_quantize[full_step]",
@@ -339,7 +339,8 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     assert [f[0] for f in failed[4:6]] == ["small ri 0: K3 differs from its CPU model",
                                            "small ri 0, corrupt: K3 differs from its CPU model"]
     assert all(f[1] >= 2 and f[2] == 0 for f in failed[4:6])  # (model rounds, K3 rounds)
-    assert failed[6] == ("full_step launches", 0, 0, 0)
+    assert k6_launches == 0
+    assert failed[6] == ("full_step launches", 0, 0, 0, 0)
     assert failed[7][0] == "full_step copies its blocks for the statistics"
     assert [op for op, _ in failed[7][1]] == ["permute"] * 3 + ["cat"]
     assert len(failed) == 8

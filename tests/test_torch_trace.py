@@ -1,6 +1,6 @@
 """PyTorch port, the spans of ``full_step`` on the CPU: under
 ``torch.profiler`` each call leaves one ``full_step`` span in the Chrome
-trace with the five stage spans of ``_step`` inside it, in order, and
+trace with the four stage spans of ``_step`` inside it, in order, and
 every op of the step after the first stage begins lies in a stage; the
 metrics table sees the same names; with neither on, ``span`` is one
 shared null context and the step opens no ``record_function``; the
@@ -17,8 +17,7 @@ from jpeglibrary_tpu_torch.host.utils import metrics
 from jpeglibrary_tpu_torch.ops import _trace
 from jpeglibrary_tpu_torch.parallel import sharding
 
-STAGES = ("full_step.decode", "full_step.to_rgb", "full_step.to_ycbcr", "full_step.fdct",
-          "full_step.stats")
+STAGES = ("full_step.decode", "full_step.to_rgb", "full_step.fdct", "full_step.stats")
 CALLS = 2
 
 
