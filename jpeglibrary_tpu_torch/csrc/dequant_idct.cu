@@ -15,14 +15,47 @@
 // table t / bpt (bpt = blocks per table), so one launch covers a batch of
 // images that each carry their own tables.
 //
-// What bounds it on Hopper: bytes. At W = 64 a block reads 256 B of int32
-// coefficients (128 B as int16) and writes 256 B of int32 samples for 4,096
-// FFMA: 65,536 blocks move 33.5 MB, 10.0 us at 3.35 TB/s, against 268 M
-// FFMA, 8.0 us at 67 TFLOP/s. At W < 64 the FFMA work and the writes shrink
-// with W and the coefficient reads (16.8 MB per 65,536 blocks) are the bound.
-// The kernel's first design (one scalar load per element, then a barrier,
-// then a loop of 17 scalar shared loads per 16 FFMA) kept no bytes in flight
-// while it computed and reached 19-33% of that bound. This design:
+// What bounds it on Hopper. At W = 64 a block is 4,096 FFMA: 0.122 ns at
+// 67 TFLOP/s, against 0.115 ns for its bytes (128 B of int16 coefficients
+// in, 256 B of int32 samples out, at 3.35 TB/s) and 0.076 ns for the plane
+// store's (128 B out). So the product bounds it, and the kernel is a
+// matter of issuing FFMA back to back: every other instruction, shared
+// load, barrier and stall takes a slot from them. At W < 64 the FFMA work
+// and the writes shrink with W and the coefficient reads (16.8 MB per
+// 65,536 blocks) are the bound.
+//
+// W = 64 (dequant_idct_kernel<T, 64>, and dequant_idct_plane_kernel):
+//
+// 1. Warps that walk alone. A CTA of kWarps warps fills an SM (one CTA an
+//    SM, kWarps x 32 threads under the 65,536 registers); it stages K once
+//    (16 KB), and after that one barrier each warp walks its own tiles of
+//    32 blocks (tile warp * grid + cta, then every kWarps * grid) with no
+//    CTA barrier, ordered by __syncwarp alone. A warp has one raw stage,
+//    filled by its own lanes' 16-byte cp.async, and a float tile of its
+//    own: once a tile is converted, the next tile's copy goes into the
+//    stage and lands while this one is multiplied. One warp's conversion
+//    or stores overlap the other warps' FFMA, and no warp waits for the
+//    slowest of the CTA.
+// 2. One conversion per element, as below (item 2 of W < 64), per warp
+//    tile, into the float tile for both coefficient types.
+// 3. An 8 x 8 register tile. Lane (r, c) = (lane / 8, lane % 8) computes
+//    blocks r, r + 4, ..., r + 28 of the tile by columns 4c .. 4c + 3 and
+//    32 + 4c .. 32 + 4c + 3. Per 4 zig-zag steps it loads K's 4 steps of
+//    its 8 columns (8 loads of 16 B, kept in 32 registers) and each of its
+//    blocks' 4 steps (8 loads): 16 loads per 256 FFMA, where the 8 x 4
+//    tile took 12 per 128. Each load is one wavefront: the 8 columns of
+//    lanes read 128 consecutive bytes of K, the 4 rows of lanes 4 blocks
+//    68 floats (4 banks) apart, each as a broadcast to the lanes that
+//    share it.
+// 4. Epilogue: a warp vote on the largest |sum| (below 2^22 on every real
+//    block) takes rint and the shift in two full-rate operations; the
+//    plane store clamps with one DPX min/max and packs two samples with
+//    one byte permute. The int32 store writes two 16-byte runs of a block
+//    a lane (8 lanes, 128 B of one block); the plane store two 8-byte runs
+//    of two plane rows, 4 blocks side by side a row of lanes (64 B of each
+//    plane row).
+//
+// W < 64 (dequant_idct_kernel<T, 16 | 4 | 1>):
 //
 // 1. Asynchronous, wide staging. A persistent grid (SMs x resident CTAs)
 //    walks tiles of 128 blocks; each tile (32 KB of int32, 16 KB of int16,
@@ -39,46 +72,38 @@
 //    an eighth of the FFMA rate, so values below 2^22 (every real
 //    coefficient and sample; a warp vote checks) convert and round with an
 //    add of 1.5 * 2^23 instead, which gives the same results.
-// 3. Register tiling. At W = 64 a thread computes 8 blocks x 4 columns: per
-//    4 zig-zag steps it loads 8 float4 of the tile (4 steps of one block
-//    each) and 4 float4 of K (4 columns of one step each) for 128 FFMA (the
-//    first design: 17 scalar loads per 16 FFMA). The 16 lanes that share
-//    blocks read them as one broadcast; a quarter-warp's K loads are 8
-//    consecutive float4. K is staged once per CTA. The loop body, unrolled
-//    twice, is 256 FFMA and 24 loads. The tile stays [block][zz], not
-//    transposed: int32 then converts in place, and 4 zig-zag steps of a
-//    block are one 16-byte load all the same.
-// 4. 16-byte stores: a thread stores 4 consecutive int32 samples (4 columns
-//    of a block; at W = 1, 4 lanes' blocks gathered by shuffles), coalesced
-//    along each row.
-// 5. The reduced widths keep 1, 2 and 4 with smaller thread tiles (Shape
-//    below); their FFMA work is small beside the coefficient reads.
+// 3. Register tiling with smaller thread tiles (Shape below): 2 blocks x 4
+//    columns at W = 16, 1 x 4 at W = 4, 1 x 1 at W = 1 (4 lanes' blocks
+//    gathered by shuffles into one 16-byte store). Their FFMA work is small
+//    beside the coefficient reads.
 //
-// Measured on an H100 (see PERF.md): 39-46% of the bound at 65,536 blocks
-// and 52% at 8 x 65,536. Estimated from per-phase clock64 timings and the
-// SASS: about a quarter of the issue slots go to staging, conversion and
-// the epilogue, and the SMs issue at about three quarters of their rate. A
-// warp-wide 16-byte shared load costs an SM about 2 cycles (measured), the
-// loop's FFMA 2.7 cycles per load, so shared memory is close to but not at
-// its limit.
+// Measured on an H100 at 700 W (tools/k1_probe.py, L2 flushed; see
+// PERF.md): 0.211-0.220 ns a block on the large launches (0.8-2 M
+// blocks), 56-58% of the FFMA floor, and 0.254-0.259 ns on the chroma's
+// 196-262 K blocks
+// (47-48%: each warp walks 4-5 tiles, so the first tile's wait and the
+// last round, where few warps are left, weigh more), in 146-154 registers
+// and no spills. The first W = 64 design (a CTA-wide tile of 128 blocks,
+// 8 x 4 a thread, two barriers a tile, 2 CTAs of 8 warps an SM) took
+// 0.254-0.289 ns a block, 42-48% of the floor. What is left: the FFMA are
+// 91% of the product loop's instructions by its SASS (the loads and the
+// loop's own take the rest), fewer with the conversion and the epilogue,
+// and ptxas's register allocation puts about a quarter of them on a
+// register bank conflict; the first 8 x 8 loop with its loads hoisted
+// out, FFMA on register operands alone, reached 63%. Fewer registers (16 warps at 128)
+// raised the conflicts to 60% and ran 10% slower.
 //
-// Each accumulator still sums zz = 0..63 in ascending order with one fp32
-// FFMA per step from 0.0f, so the outputs equal the first design's bit for
-// bit. Tensor cores (wgmma, 3xTF32) are not used: the bytes, not the FFMA,
-// bound the kernel at W = 64, and 3xTF32 would need its own proof of the
-// 1-LSB contract. They return once the densify is fused into the load and
-// the bytes shrink.
+// Each accumulator sums zz = 0..63 in ascending order with one fp32 FFMA
+// per step from 0.0f, so the outputs equal the first design's bit for bit
+// in every layout. Tensor cores (wgmma, 3xTF32) are not used: 3xTF32
+// would need its own proof of the 1-LSB contract.
 //
-// 6. The plane store (dequant_idct_plane_kernel, W = 64 only): the same
-//    tiles and product, but each sample is clamped to [0, max_sample] and
-//    stored as uint16 into a raster plane [rows * 8, wb * 8], block t at
-//    block row t / wb and column t % wb: the decoded plane of a batch of
-//    one-component frames (parallel/sharding.py gray_step), 2 B a sample
-//    where the int32 blocks take 4, with no layout pass after it. A thread's
-//    4 columns of a block are 8 bytes of one plane row; the two blocks of a
-//    warp's store lie side by side, so each of its 8 rows is one 32-byte
-//    sector. The int32 block store (dequant_idct_kernel) is a separate
-//    instantiation and compiles as before.
+// The plane store (dequant_idct_plane_kernel, W = 64 only): the same tiles
+// and product, but each sample is clamped to [0, max_sample] and stored as
+// uint16 into a raster plane [rows * 8, wb * 8], block t at block row t / wb
+// and column t % wb: the decoded plane of a batch of one-component frames
+// (parallel/sharding.py gray_step), 2 B a sample where the int32 blocks
+// take 4, with no layout pass after it.
 //
 // Precision: full fp32 FFMA, no TF32 and no fast-math. The dequant product
 // is rounded on its own (__fmul_rn) before the dot, as the JAX kernel
@@ -92,47 +117,73 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 128;      // blocks per tile
+constexpr int kThreads = 256;   // W < 64: threads a CTA
+constexpr int kTile = 128;      // W < 64: blocks a CTA tile
+constexpr int kWarps = 12;      // W = 64: warps a CTA, one CTA an SM
+constexpr int kWarpTile = 32;   // W = 64: blocks a warp tile
 constexpr int kPitch = 68;      // floats per row of the float tile (16 B of padding)
 constexpr int kMaxDevices = 64;
 
-// The raw tile of one coefficient type: rows of 64 zig-zag entries, staged
-// 16 bytes at a time into rows padded by one chunk. int32 rows convert to
-// fp32 in place (the float tile is the stage itself); int16 rows convert
-// into a separate float tile.
-template <typename CoeffT>
+// The raw tile of one coefficient type, kBlocks rows of 64 zig-zag entries
+// staged by kLanes threads, 16 bytes at a time, into rows padded by one
+// chunk. In the CTA walk int32 rows convert to fp32 in place (the float
+// tile is the stage itself) and int16 rows into a separate float tile; a
+// warp converts either into a float tile of its own.
+template <typename CoeffT, int kBlocks, int kLanes>
 struct Raw {
+  static constexpr int kTileBlocks = kBlocks;
+  static constexpr int kThreadsPerTile = kLanes;
   static constexpr bool kInPlace = sizeof(CoeffT) == 4;
   static constexpr int kRowBytes = 64 * static_cast<int>(sizeof(CoeffT));  // 256 or 128
   static constexpr int kRowPitch = kRowBytes + 16;                         // 272 or 144
   static constexpr int kChunksPerRow = kRowBytes / 16;                     // 16 or 8
   static constexpr int kPerChunk = 16 / static_cast<int>(sizeof(CoeffT));   // 4 or 8 entries
-  static constexpr int kChunksPerThread = kTile * kChunksPerRow / kThreads;
-  static constexpr int kStageBytes = kTile * kRowPitch;
-  static_assert(kTile * kChunksPerRow % kThreads == 0, "whole chunks per thread");
-  static_assert(kThreads % kChunksPerRow == 0, "a thread keeps its zig-zag entries");
+  static constexpr int kChunksPerThread = kBlocks * kChunksPerRow / kLanes;
+  static constexpr int kStageBytes = kBlocks * kRowPitch;
+  static_assert(kBlocks * kChunksPerRow % kLanes == 0, "whole chunks per thread");
+  static_assert(kLanes % kChunksPerRow == 0, "a thread keeps its zig-zag entries");
   static_assert(!kInPlace || kRowPitch == kPitch * 4, "in place, a raw row is a float row");
 };
 
-// The thread tile at output width W: kRows blocks (g, g + kRowStride, ...
-// for block group g) by kCols consecutive columns. kWorkers threads cover
-// the tile's kTile x W samples: all of the CTA at W = 64 and 16, half of it
+template <typename CoeffT>
+using CtaRaw = Raw<CoeffT, kTile, kThreads>;  // W < 64: a CTA's tile
+template <typename CoeffT>
+using WarpRaw = Raw<CoeffT, kWarpTile, 32>;   // W = 64: a warp's tile
+
+// The CTA of an instantiation.
+template <int W>
+struct Layout {
+  static constexpr int kCtaThreads = W == 64 ? 32 * kWarps : kThreads;
+  static constexpr int kMinCtas = W == 64 ? 1 : 2;  // resident CTAs an SM, for the registers
+  static constexpr int kTileBlocks = W == 64 ? kWarpTile : kTile;
+};
+
+// The thread tile at output width W < 64: kRows blocks (g, g + kRowStride,
+// ... for block group g) by kCols consecutive columns. kWorkers threads
+// cover the tile's kTile x W samples: all of the CTA at W = 16, half of it
 // at W = 4 and 1.
 template <int W>
 struct Shape {
-  static constexpr int kRows = W == 64 ? 8 : (W == 16 ? 2 : 1);  // 8 x 4 at W = 64
+  static_assert(W < 64, "W = 64 has its own warp tiles");
+  static constexpr int kRows = W == 16 ? 2 : 1;
   static constexpr int kCols = W == 1 ? 1 : 4;  // at W = 1, 4 lanes meet in one store
   static constexpr int kColGroups = W / kCols;
   static constexpr int kRowStride = kTile / kRows;  // the number of block groups
-  static constexpr int kWorkers = kColGroups * kRowStride;  // 256, 256, 128, 128
+  static constexpr int kWorkers = kColGroups * kRowStride;  // 256, 128, 128
   static_assert(kWorkers % 32 == 0 && kWorkers <= kThreads, "whole warps, one tile each");
 };
 
+// W = 64: a warp's raw stage and float tile.
+template <typename CoeffT>
+__host__ __device__ constexpr int warp_bytes() {
+  return WarpRaw<CoeffT>::kStageBytes + kWarpTile * kPitch * 4;
+}
+
 template <typename CoeffT, int W>
 constexpr int shared_bytes() {
-  return 64 * W * 4 + 2 * Raw<CoeffT>::kStageBytes
-         + (Raw<CoeffT>::kInPlace ? 0 : kTile * kPitch * 4);
+  using R = CtaRaw<CoeffT>;
+  return W == 64 ? 64 * 64 * 4 + kWarps * warp_bytes<CoeffT>()
+                 : 64 * W * 4 + 2 * R::kStageBytes + (R::kInPlace ? 0 : kTile * kPitch * 4);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -150,17 +201,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Start copying tile `tile` into `stage` (nothing past the last tile).
-template <typename CoeffT>
+// Start copying tile `tile` of R's size into `stage` (nothing past the last
+// tile); `tid` is the thread's index among R's threads.
+template <class R>
 __device__ __forceinline__ void issue_tile(unsigned char* stage, const unsigned char* coeffs,
                                            int64_t tile, int64_t n_tiles, int64_t n_blocks,
                                            int tid) {
-  using R = Raw<CoeffT>;
   if (tile >= n_tiles) return;
-  const int64_t first = tile * kTile;
+  const int64_t first = tile * R::kTileBlocks;
 #pragma unroll
   for (int k = 0; k < R::kChunksPerThread; ++k) {
-    const int g = tid + k * kThreads;
+    const int g = tid + k * R::kThreadsPerTile;
     const int b = g / R::kChunksPerRow;
     const int u = g % R::kChunksPerRow;
     const bool valid = first + b < n_blocks;
@@ -236,16 +287,15 @@ __device__ __forceinline__ void unpack(const int4 v, float (&c)[8]) {  // int16 
 // their blocks, and only the thread reads and writes them. Entries below
 // 2^22 in magnitude (int16 always, int32 where the warp's all are) take the
 // full-rate conversion; the result is the same float.
-template <typename CoeffT, bool kSmall, bool kOneTable>
+template <typename CoeffT, class R, bool kSmall, bool kOneTable>
 __device__ __forceinline__ void convert_chunks(
-    float* tile_s, const int4 (&v)[Raw<CoeffT>::kChunksPerThread],
-    const int32_t* __restrict__ quant, const float (&q_tile)[Raw<CoeffT>::kPerChunk],
+    float* tile_s, const int4 (&v)[R::kChunksPerThread],
+    const int32_t* __restrict__ quant, const float (&q_tile)[R::kPerChunk],
     int64_t first, int rows, int64_t blocks_per_table, int tid, int zz0) {
-  using R = Raw<CoeffT>;
   constexpr int E = R::kPerChunk;
 #pragma unroll
   for (int k = 0; k < R::kChunksPerThread; ++k) {
-    const int b = (tid + k * kThreads) / R::kChunksPerRow;
+    const int b = (tid + k * R::kThreadsPerTile) / R::kChunksPerRow;
     float c[E];
     unpack<kSmall>(v[k], c);
     float q[E];
@@ -268,17 +318,16 @@ __device__ __forceinline__ void convert_chunks(
   }
 }
 
-template <typename CoeffT>
+template <typename CoeffT, class R>
 __device__ __forceinline__ void convert_tile(
     float* tile_s, const unsigned char* stage, const int32_t* __restrict__ quant,
-    const float (&q_tile)[Raw<CoeffT>::kPerChunk], bool one_table, int64_t first, int rows,
+    const float (&q_tile)[R::kPerChunk], bool one_table, int64_t first, int rows,
     int64_t blocks_per_table, int tid, int zz0) {
-  using R = Raw<CoeffT>;
   int4 v[R::kChunksPerThread];
   bool small = true;
 #pragma unroll
   for (int k = 0; k < R::kChunksPerThread; ++k) {
-    const int g = tid + k * kThreads;
+    const int g = tid + k * R::kThreadsPerTile;
     v[k] = *reinterpret_cast<const int4*>(stage + (g / R::kChunksPerRow) * R::kRowPitch
                                           + 16 * (g % R::kChunksPerRow));
     small = small && is_small(v[k].x) && is_small(v[k].y) && is_small(v[k].z)
@@ -286,21 +335,21 @@ __device__ __forceinline__ void convert_tile(
   }
   // Both conditions are the same for the whole warp, so each call runs one
   // straight-line path.
-  small = !R::kInPlace || __all_sync(0xFFFFFFFFu, small);
+  small = sizeof(CoeffT) == 2 || __all_sync(0xFFFFFFFFu, small);
   if (one_table) {
     if (small) {
-      convert_chunks<CoeffT, true, true>(tile_s, v, quant, q_tile, first, rows,
-                                         blocks_per_table, tid, zz0);
+      convert_chunks<CoeffT, R, true, true>(tile_s, v, quant, q_tile, first, rows,
+                                            blocks_per_table, tid, zz0);
     } else {
-      convert_chunks<CoeffT, false, true>(tile_s, v, quant, q_tile, first, rows,
-                                          blocks_per_table, tid, zz0);
+      convert_chunks<CoeffT, R, false, true>(tile_s, v, quant, q_tile, first, rows,
+                                             blocks_per_table, tid, zz0);
     }
   } else if (small) {
-    convert_chunks<CoeffT, true, false>(tile_s, v, quant, q_tile, first, rows,
-                                        blocks_per_table, tid, zz0);
+    convert_chunks<CoeffT, R, true, false>(tile_s, v, quant, q_tile, first, rows,
+                                           blocks_per_table, tid, zz0);
   } else {
-    convert_chunks<CoeffT, false, false>(tile_s, v, quant, q_tile, first, rows,
-                                         blocks_per_table, tid, zz0);
+    convert_chunks<CoeffT, R, false, false>(tile_s, v, quant, q_tile, first, rows,
+                                            blocks_per_table, tid, zz0);
   }
 }
 
@@ -318,9 +367,10 @@ struct BlockStore {
   int32_t* __restrict__ out;
   int level_shift;
 
-  template <bool kSmall>
-  __device__ __forceinline__ void put(const float (&acc)[Shape<W>::kRows][Shape<W>::kCols],
-                                      int64_t first, int rows, int b0, int cg) const {
+  // W < 64: the Shape<W> tile of the CTA walk.
+  template <bool kSmall, int kRows, int kCols>
+  __device__ __forceinline__ void put(const float (&acc)[kRows][kCols], int64_t first, int rows,
+                                      int b0, int cg) const {
     using S = Shape<W>;
     if constexpr (W == 1) {  // lanes 4m .. 4m + 3 hold 4 consecutive blocks' samples
       const int64_t t = first + b0;
@@ -346,6 +396,26 @@ struct BlockStore {
       }
     }
   }
+
+  // W = 64: lane (r, c)'s blocks r + 4j of the warp tile, columns 4c ..
+  // 4c + 3 (acc[j][0..3]) and 32 + 4c .. 32 + 4c + 3 (acc[j][4..7]).
+  template <bool kSmall>
+  __device__ __forceinline__ void put_warp(const float (&acc)[8][8], int64_t first, int rows,
+                                           int r, int c) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (r + 4 * j < rows) {
+        int32_t* at = out + (first + r + 4 * j) * 64 + 4 * c;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* a = acc[j] + 4 * h;
+          *reinterpret_cast<int4*>(at + 32 * h) = make_int4(
+              rint_shift<kSmall>(a[0], level_shift), rint_shift<kSmall>(a[1], level_shift),
+              rint_shift<kSmall>(a[2], level_shift), rint_shift<kSmall>(a[3], level_shift));
+        }
+      }
+    }
+  }
 };
 
 // Round, shift, clamp to [0, max_sample] and store the thread's samples as
@@ -358,33 +428,45 @@ struct PlaneStore {
   int level_shift;
   int max_sample;
 
+  // Two samples packed into a word. The fast path takes rint, the shift and
+  // the clamp in an add and one DPX operation, max(min(x + y, z), 0).
   template <bool kSmall>
-  __device__ __forceinline__ int sample(float a) const {
-    return min(max(rint_shift<kSmall>(a, level_shift), 0), max_sample);
+  __device__ __forceinline__ unsigned pair(float a0, float a1) const {
+    int s0, s1;
+    if constexpr (kSmall) {
+      s0 = __viaddmin_s32_relu(__float_as_int(__fadd_rn(a0, 12582912.0f)),
+                               level_shift - 0x4B400000, max_sample);
+      s1 = __viaddmin_s32_relu(__float_as_int(__fadd_rn(a1, 12582912.0f)),
+                               level_shift - 0x4B400000, max_sample);
+    } else {
+      s0 = min(max(__float2int_rn(a0) + level_shift, 0), max_sample);
+      s1 = min(max(__float2int_rn(a1) + level_shift, 0), max_sample);
+    }
+    return __byte_perm(s0, s1, 0x5410);  // the low halves: s0 | s1 << 16
   }
 
+  // Lane (r, c)'s blocks r + 4j of the warp tile: columns 4c .. 4c + 3 are
+  // row c / 2 of a block from column 4 (c % 2), columns 32 + 4c .. 32 + 4c
+  // + 3 the same columns of row 4 + c / 2.
   template <bool kSmall>
-  __device__ __forceinline__ void put(const float (&acc)[Shape<64>::kRows][Shape<64>::kCols],
-                                      int64_t first, int rows, int b0, int cg) const {
-    using S = Shape<64>;
-    // Columns 4 cg .. 4 cg + 3 of a block are row cg / 2 of it, from column
-    // 4 (cg % 2).
-    const unsigned t0 = static_cast<unsigned>(first) + b0;
+  __device__ __forceinline__ void put_warp(const float (&acc)[8][8], int64_t first, int rows,
+                                           int r, int c) const {
+    const unsigned t0 = static_cast<unsigned>(first) + r;
     unsigned block_row = t0 / wb;
     unsigned col = t0 - block_row * wb;
     const int64_t pitch = static_cast<int64_t>(wb) * 8;
 #pragma unroll
-    for (int j = 0; j < S::kRows; ++j) {
-      if (b0 + j * S::kRowStride < rows) {
+    for (int j = 0; j < 8; ++j) {
+      if (r + 4 * j < rows) {
         const float* a = acc[j];
-        const unsigned lo = static_cast<unsigned>(sample<kSmall>(a[0]))
-                            | static_cast<unsigned>(sample<kSmall>(a[1])) << 16;
-        const unsigned hi = static_cast<unsigned>(sample<kSmall>(a[2]))
-                            | static_cast<unsigned>(sample<kSmall>(a[3])) << 16;
-        *reinterpret_cast<uint2*>(out + (static_cast<int64_t>(block_row) * 8 + cg / 2) * pitch
-                                  + col * 8 + 4 * (cg & 1)) = make_uint2(lo, hi);
+        uint16_t* at = out + (static_cast<int64_t>(block_row) * 8 + c / 2) * pitch + col * 8
+                       + 4 * (c & 1);
+        *reinterpret_cast<uint2*>(at) =
+            make_uint2(pair<kSmall>(a[0], a[1]), pair<kSmall>(a[2], a[3]));
+        *reinterpret_cast<uint2*>(at + 4 * pitch) =
+            make_uint2(pair<kSmall>(a[4], a[5]), pair<kSmall>(a[6], a[7]));
       }
-      col += S::kRowStride;  // the thread's next block
+      col += 4;  // the lane's next block
       while (col >= wb) {
         col -= wb;
         ++block_row;
@@ -393,16 +475,14 @@ struct PlaneStore {
   }
 };
 
-// The thread's samples of the tile, each summed over zz = 0..63 in order.
+// W < 64: the thread's samples of the CTA tile, each summed over zz = 0..63
+// in order.
 template <int W, class Store>
 __device__ __forceinline__ void compute_tile(const float* k_s, const float* tile_s,
                                              const Store& store, int64_t first, int rows,
                                              int tid) {
   using S = Shape<W>;
   if (tid >= S::kWorkers) return;
-  // The narrow widths unroll their 16 steps, so each thread's loads are in
-  // flight together; W = 64 unrolls two, a body of 256 FFMA and 24 loads.
-  constexpr int kUnroll = W == 64 ? 2 : 16;
   const int cg = tid % S::kColGroups;
   const int b0 = tid / S::kColGroups;
   float acc[S::kRows][S::kCols];
@@ -412,7 +492,8 @@ __device__ __forceinline__ void compute_tile(const float* k_s, const float* tile
     for (int c = 0; c < S::kCols; ++c) acc[j][c] = 0.0f;
   }
 
-#pragma unroll kUnroll
+  // All 16 steps unrolled, so each thread's loads are in flight together.
+#pragma unroll
   for (int zq = 0; zq < 16; ++zq) {  // zig-zag steps 4 zq .. 4 zq + 3
     float d[S::kRows][4];
 #pragma unroll
@@ -455,14 +536,72 @@ __device__ __forceinline__ void compute_tile(const float* k_s, const float* tile
   }
 }
 
-// The persistent walk over the tiles, each stored by `store`.
+// W = 64: lane (r, c)'s 8 x 8 samples of the warp tile, each summed over
+// zz = 0..63 in order.
+template <class Store>
+__device__ __forceinline__ void compute_warp_tile(const float* k_s, const float* tile_s,
+                                                  const Store& store, int64_t first, int rows,
+                                                  int lane) {
+  const int r = lane / 8;
+  const int c = lane % 8;
+  float acc[8][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[j][n] = 0.0f;
+  }
+  const float* d_at = tile_s + r * kPitch;  // block r + 4j at + 4j * kPitch
+  const float* k_at = k_s + 4 * c;          // step zz at + zz * 64, the second half + 32
+
+  // K stays in registers for 4 steps (32 of them); each block's 4 steps
+  // are one load, each used by 8 FFMA in a row. Held this way, ptxas gives
+  // the FFMA fewer register bank conflicts than with the blocks' steps held
+  // and K loaded a step at a time (24% against 35% of them, by its SASS).
+#pragma unroll 2
+  for (int zq = 0; zq < 16; ++zq) {  // zig-zag steps 4 zq .. 4 zq + 3
+    float k[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      split(*reinterpret_cast<const float4*>(k_at + (4 * zq + i) * 64), k[i]);
+      split(*reinterpret_cast<const float4*>(k_at + (4 * zq + i) * 64 + 32), k[i] + 4);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float d[4];
+      split(*reinterpret_cast<const float4*>(d_at + 4 * j * kPitch + 4 * zq), d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) acc[j][n] = __fmaf_rn(d[i], k[i][n], acc[j][n]);
+      }
+    }
+  }
+
+  // rint_is_small on the largest magnitude: one FMNMX a sample. The sums
+  // are finite (integer inputs below 2^31 times the matrix), so no NaN can
+  // slip past the max.
+  float largest = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) largest = fmaxf(largest, fabsf(acc[j][n]));
+  }
+  if (__all_sync(0xFFFFFFFFu, rint_is_small(largest))) {
+    store.template put_warp<true>(acc, first, rows, r, c);
+  } else {
+    store.template put_warp<false>(acc, first, rows, r, c);
+  }
+}
+
+// W < 64: the persistent walk of the CTA over tiles of 128 blocks, each
+// stored by `store`.
 template <typename CoeffT, int W, class Store>
 __device__ __forceinline__ void walk_tiles(const CoeffT* __restrict__ coeffs,
                                            const int32_t* __restrict__ quant,
                                            const float* __restrict__ matrix,
                                            int64_t n_blocks, int64_t blocks_per_table,
                                            const Store& store) {
-  using R = Raw<CoeffT>;
+  using R = CtaRaw<CoeffT>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* k_s = reinterpret_cast<float*>(smem);
   unsigned char* stages = reinterpret_cast<unsigned char*>(k_s + 64 * W);
@@ -474,7 +613,7 @@ __device__ __forceinline__ void walk_tiles(const CoeffT* __restrict__ coeffs,
   const auto* bytes = reinterpret_cast<const unsigned char*>(coeffs);
 
   int64_t tile = blockIdx.x;
-  issue_tile<CoeffT>(stages, bytes, tile, n_tiles, n_blocks, tid);
+  issue_tile<R>(stages, bytes, tile, n_tiles, n_blocks, tid);
   for (int i = tid; i < 64 * W; i += kThreads) k_s[i] = matrix[i];  // while the tile arrives
 
   constexpr int E = R::kPerChunk;
@@ -495,36 +634,93 @@ __device__ __forceinline__ void walk_tiles(const CoeffT* __restrict__ coeffs,
     cp_async_wait_all();  // this tile has landed (the only group in flight)
     __syncthreads();      // every thread's copies; the last tile's compute is done
     // The next tile streams in while this one is converted and computed.
-    issue_tile<CoeffT>(stages + ((it + 1) & 1) * R::kStageBytes, bytes, tile + step,
-                       n_tiles, n_blocks, tid);
-    convert_tile<CoeffT>(tile_s, stage, quant, q_tile, one_table, first, rows,
-                         blocks_per_table, tid, zz0);
+    issue_tile<R>(stages + ((it + 1) & 1) * R::kStageBytes, bytes, tile + step, n_tiles,
+                  n_blocks, tid);
+    convert_tile<CoeffT, R>(tile_s, stage, quant, q_tile, one_table, first, rows,
+                            blocks_per_table, tid, zz0);
     __syncthreads();
     compute_tile<W>(k_s, tile_s, store, first, rows, tid);
   }
 }
 
+// W = 64: each warp's walk over its own tiles of 32 blocks (tile warp *
+// grid + cta, then every kWarps * grid), each stored by `store`. The CTA
+// meets at one barrier, once K is staged. A warp has one raw stage: once a
+// tile is converted into the float tile, the next tile's copy goes into
+// it and lands while this one is multiplied.
+template <typename CoeffT, class Store>
+__device__ __forceinline__ void walk_warp_tiles(const CoeffT* __restrict__ coeffs,
+                                                const int32_t* __restrict__ quant,
+                                                const float* __restrict__ matrix,
+                                                int64_t n_blocks, int64_t blocks_per_table,
+                                                const Store& store) {
+  using R = WarpRaw<CoeffT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  unsigned char* stage = smem + 64 * 64 * 4 + warp * warp_bytes<CoeffT>();
+  float* tile_s = reinterpret_cast<float*>(stage + R::kStageBytes);
+
+  const int64_t n_tiles = (n_blocks + kWarpTile - 1) / kWarpTile;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps;
+  const auto* bytes = reinterpret_cast<const unsigned char*>(coeffs);
+
+  int64_t tile = static_cast<int64_t>(warp) * gridDim.x + blockIdx.x;
+  issue_tile<R>(stage, bytes, tile, n_tiles, n_blocks, lane);
+  for (int i = threadIdx.x; i < 64 * 64; i += 32 * kWarps) k_s[i] = matrix[i];
+  __syncthreads();  // K is staged; from here on each warp walks alone
+
+  constexpr int E = R::kPerChunk;
+  const int zz0 = E * (lane % R::kChunksPerRow);
+  float q_tile[E];
+  int64_t q_table = -1;
+  for (; tile < n_tiles; tile += step) {
+    const int64_t first = tile * kWarpTile;
+    const int rows =
+        static_cast<int>(n_blocks - first < kWarpTile ? n_blocks - first : kWarpTile);
+    const int64_t table0 = first / blocks_per_table;
+    const bool one_table = (first + rows - 1) / blocks_per_table == table0;
+    if (one_table && table0 != q_table) {
+      load_quant(q_tile, quant, table0, zz0);
+      q_table = table0;
+    }
+    cp_async_wait_all();  // this tile has landed (the only group in flight)
+    __syncwarp();         // every lane's copies; the last tile's product is done
+    convert_tile<CoeffT, R>(tile_s, stage, quant, q_tile, one_table, first, rows,
+                            blocks_per_table, lane, zz0);
+    __syncwarp();  // the float tile is whole and the stage free
+    issue_tile<R>(stage, bytes, tile + step, n_tiles, n_blocks, lane);
+    compute_warp_tile(k_s, tile_s, store, first, rows, lane);
+  }
+}
+
 template <typename CoeffT, int W>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Layout<W>::kCtaThreads, Layout<W>::kMinCtas)
 dequant_idct_kernel(const CoeffT* __restrict__ coeffs,
                     const int32_t* __restrict__ quant,
                     const float* __restrict__ matrix,
                     int32_t* __restrict__ out,
                     int64_t n_blocks, int64_t blocks_per_table, int level_shift) {
-  walk_tiles<CoeffT, W>(coeffs, quant, matrix, n_blocks, blocks_per_table,
-                        BlockStore<W>{out, level_shift});
+  if constexpr (W == 64) {
+    walk_warp_tiles<CoeffT>(coeffs, quant, matrix, n_blocks, blocks_per_table,
+                            BlockStore<64>{out, level_shift});
+  } else {
+    walk_tiles<CoeffT, W>(coeffs, quant, matrix, n_blocks, blocks_per_table,
+                          BlockStore<W>{out, level_shift});
+  }
 }
 
 template <typename CoeffT>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Layout<64>::kCtaThreads, Layout<64>::kMinCtas)
 dequant_idct_plane_kernel(const CoeffT* __restrict__ coeffs,
                           const int32_t* __restrict__ quant,
                           const float* __restrict__ matrix,
                           uint16_t* __restrict__ out,
                           int64_t n_blocks, int64_t blocks_per_table, unsigned width_blocks,
                           int level_shift, int max_sample) {
-  walk_tiles<CoeffT, 64>(coeffs, quant, matrix, n_blocks, blocks_per_table,
-                         PlaneStore{out, width_blocks, level_shift, max_sample});
+  walk_warp_tiles<CoeffT>(coeffs, quant, matrix, n_blocks, blocks_per_table,
+                          PlaneStore{out, width_blocks, level_shift, max_sample});
 }
 
 // CTAs of one instantiation that fit on an SM of `device`, found once per
@@ -548,7 +744,7 @@ cudaError_t ctas_per_sm(int device, int* out) {
                                          smem);
   if (err != cudaSuccess) return err;
   int n = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, Layout<W>::kCtaThreads, smem);
   if (err != cudaSuccess) return err;
   if (n < 1) return cudaErrorInvalidConfiguration;
   if (device < kMaxDevices) known[device] = n;
@@ -556,7 +752,8 @@ cudaError_t ctas_per_sm(int device, int* out) {
   return cudaSuccess;
 }
 
-// The persistent grid: one CTA a tile, at most as many as fit on the SMs.
+// The persistent grid: one CTA a tile (a CTA's at W < 64, a warp's at W =
+// 64), at most as many as fit on the SMs.
 template <typename CoeffT, int W, bool kPlane>
 cudaError_t grid_size(int64_t n_blocks, int64_t* grid) {
   int device = 0;
@@ -566,7 +763,8 @@ cudaError_t grid_size(int64_t n_blocks, int64_t* grid) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) err = ctas_per_sm<CoeffT, W, kPlane>(device, &per_sm);
   if (err != cudaSuccess) return err;
-  const int64_t n_tiles = (n_blocks + kTile - 1) / kTile;
+  constexpr int kBlocks = Layout<W>::kTileBlocks;
+  const int64_t n_tiles = (n_blocks + kBlocks - 1) / kBlocks;
   const int64_t slots = static_cast<int64_t>(sms) * per_sm;
   *grid = n_tiles < slots ? n_tiles : slots;
   return cudaSuccess;
@@ -579,7 +777,7 @@ int launch_width(const void* coeffs, const void* quant, const void* matrix, void
   int64_t grid = 0;
   const cudaError_t err = grid_size<CoeffT, W, false>(n_blocks, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dequant_idct_kernel<CoeffT, W><<<static_cast<unsigned>(grid), kThreads,
+  dequant_idct_kernel<CoeffT, W><<<static_cast<unsigned>(grid), Layout<W>::kCtaThreads,
                                    shared_bytes<CoeffT, W>(), stream>>>(
       static_cast<const CoeffT*>(coeffs), static_cast<const int32_t*>(quant),
       static_cast<const float*>(matrix), static_cast<int32_t*>(out), n_blocks,
@@ -632,7 +830,7 @@ int launch_plane(const void* coeffs, const void* quant, const void* matrix, void
   int64_t grid = 0;
   const cudaError_t err = grid_size<int16_t, 64, true>(n_blocks, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dequant_idct_plane_kernel<int16_t><<<static_cast<unsigned>(grid), kThreads,
+  dequant_idct_plane_kernel<int16_t><<<static_cast<unsigned>(grid), Layout<64>::kCtaThreads,
                                        shared_bytes<int16_t, 64>(),
                                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(coeffs), static_cast<const int32_t*>(quant),

@@ -199,6 +199,57 @@ def test_k5_probe_exits_nonzero_without_cuda():
     assert r.returncode != 0 and "parts:" not in r.stdout
 
 
+@pytest.fixture(scope="module")
+def k1_probe():
+    spec = importlib.util.spec_from_file_location("k1_probe", ROOT / "tools" / "k1_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_k1_probe_launches_are_the_cells_steps(k1_probe):
+    """tools/k1_probe.py times K1's launches of each benchmark cell's step:
+    the luma and twice the half-size chroma of a 4:2:0 batch (planes padded
+    to whole MCUs), the plane store on a one-component series."""
+    import json
+
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    configs = {c["name"]: json.loads((ROOT / c["file"]).read_text()) for c in bench["configs"]}
+    want = set()
+    for cell in bench["workloads"]:
+        config = configs[cell["config"]]
+        traffic = json.loads((ROOT / "jpegbench" / "traffic" / f"{cell['traffic']}.json").read_text())
+        b = traffic["batch"]
+        if config.get("components") == 1:
+            want.add((cell["name"], 1, "plane", (b, config["height"] // 8, config["width"] // 8)))
+            continue
+        hb, wb = -(-config["height"] // 16) * 2, -(-config["width"] // 16) * 2
+        want.add((cell["name"], 1, "blocks", (b, hb, wb)))
+        want.add((cell["name"], 2, "blocks", (b, hb // 2, wb // 2)))
+    got = {(cell, per_step, store, shape)
+           for cell, _, per_step, store, shape, _, _ in k1_probe.LAUNCHES}
+    assert got == want
+
+
+def test_k1_probe_shares(k1_probe):
+    """A K1 launch at the FFMA floor reads 100% of it, and the bytes bound
+    counts 2 B in and 4 (or 2) B out a sample."""
+    probe = k1_probe
+    n = 1 << 20
+    floor_ms = n * 8192 / 67e12 * 1e3
+    by_bytes, by_ffma, ns = probe.shares(n, 4, floor_ms)
+    assert abs(by_ffma - 1) < 1e-12 and abs(ns - 8192 / 67e12 * 1e9) < 1e-9
+    assert abs(by_bytes - n * 64 * 6 / 3.35e12 * 1e3 / floor_ms) < 1e-12
+    assert probe.shares(n, 2, floor_ms)[0] == pytest.approx(by_bytes * 4 / 6)
+
+
+def test_k1_probe_exits_nonzero_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / "k1_probe.py")], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "time:" not in r.stdout
+
+
 @pytest.mark.parametrize("hs,vs", [(3, 1), (1, 3), (3, 3), (4, 3), (4, 4)])
 @pytest.mark.parametrize("precision", [8, 12])
 def test_box_encoder_matches_jax_device_encode(smoke, hs, vs, precision):
