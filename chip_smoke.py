@@ -41,7 +41,8 @@ layer in spawned ranks. In order:
    bound (the larger of the bytes over 3.35 TB/s and the product over
    989 TFLOP/s bf16 plus the per-element operations over 67 TFLOP/s);
 4. decode slice: the images are synthesised (a numpy gradient plus noise
-   per seed) and encoded by the baseline encoder below; the stream
+   per seed) and encoded by the benchmark's numpy baseline encoder
+   (``jpegbench/generators/jpeg420.py``); the stream
    decode is held against the port's CPU path (<= 2 RGB levels on <= 1e-4
    of the values; the CPU tests hold that path to the JAX package) and
    against the source image (PSNR), with K1 launched exactly 3 times per
@@ -207,7 +208,9 @@ calls of ``full_step``, K4, K5 on ``full_step``'s luma, and K6 at the
 time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
-of this repo only the port, ``jpeglibrary_tpu_torch``.
+of this repo only the port, ``jpeglibrary_tpu_torch``, and the
+benchmark's plain helpers in ``jpegbench/`` (its input encoder, interval
+union and peak rates), which import nothing of the port.
 """
 
 from __future__ import annotations
@@ -221,6 +224,13 @@ import time
 
 import numpy as np
 import torch
+
+# The benchmark's numpy encoder of the decode's inputs, its union of device
+# intervals and the H100's published peaks; they import nothing of the port.
+from jpegbench.core.peaks import FP32_OPS_PER_S, HBM_BYTES_PER_S, TENSOR_FLOPS_PER_S
+from jpegbench.core.trace import union_s
+from jpegbench.generators.jpeg420 import encode_420, quantised_planes, synth_image
+from jpegbench.reference.tables import ZIGZAG
 
 K1_SOURCE = "jpeglibrary_tpu_torch/csrc/dequant_idct.cu"
 K1_REPLACES = "jpeglibrary_tpu/ops/pallas_kernels.py:57"
@@ -285,13 +295,6 @@ MIN_PSNR_DB = 22.0  # the decode against its source image; q75 and the noise giv
 SCALED_SHARE = 0.05  # the JAX package's scaled contract: <= 2 levels on < 5% of the values
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clocks
 FLUSH_BYTES = 256 << 20  # written between timed calls to empty the 50 MB L2
-# The bound of a kernel call: the larger of its bytes (each input read once,
-# each output written once) over the memory rate, and its matrix product
-# over the tensor cores' dense bf16 peak plus its per-element operations
-# over the CUDA cores' fp32 peak (an H100 SXM's published rates at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-TENSOR_FLOPS_PER_S = 989e12
-FP32_OPS_PER_S = 67e12
 
 
 def log(*args):
@@ -1045,181 +1048,6 @@ def phase_stripes(sl, dev):
     return launches
 
 
-def synth_image(seed, size):
-    """A smooth colour gradient plus Gaussian noise, one seed per image."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
-    base = np.stack(
-        [255 * xx / size, 255 * yy / size, 127.5 + 100 * np.sin(xx / 97 + yy / 61 + seed)], -1
-    )
-    return np.clip(base + rng.normal(0, 16, (size, size, 3)), 0, 255).astype(np.uint8)
-
-
-# --- The synthetic inputs: a baseline 4:2:0 JPEG encoder in numpy ---------
-# ITU-T T.81 Annex K: quantisation tables K.1 and K.2 (natural order), IJG
-# quality scaling, and Huffman tables K.3-K.6. The AC tables' 16-bit codes
-# take the symbols left over in ascending order, as the standard lists them.
-
-LUMA_Q = np.array([
-    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
-CHROMA_Q = np.full(64, 99)
-CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
-    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
-AC_SYMBOLS = [0x00, 0xF0] + [run << 4 | size for run in range(16) for size in range(1, 11)]
-
-
-def ac_symbols(head):
-    """An AC table's symbols: those with codes shorter than 16 bits, then the rest."""
-    return head + sorted(set(AC_SYMBOLS) - set(head))
-
-
-HUFFMAN = {  # (class, table id): (code counts by length 1..16, symbols in code order)
-    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
-    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
-    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], ac_symbols([
-        0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13,
-        0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23, 0x42,
-        0xB1, 0xC1, 0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82])),
-    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], ac_symbols([
-        0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51,
-        0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1,
-        0xC1, 0x09, 0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24,
-        0x34, 0xE1, 0x25, 0xF1])),
-}
-# ZIGZAG[k] is the natural (row * 8 + column) index of zig-zag position k.
-ZIGZAG = np.array(sorted(range(64), key=lambda p: (
-    p // 8 + p % 8, p // 8 if (p // 8 + p % 8) % 2 else p % 8)))
-_u = np.arange(8)[:, None]
-DCT = np.sqrt(np.where(_u == 0, 1 / 8, 2 / 8)) * np.cos(
-    (2 * np.arange(8)[None, :] + 1) * _u * np.pi / 16)  # orthonormal DCT-II
-
-
-def huffman_codes(counts, symbols):
-    """Canonical codes: (code, length) arrays indexed by symbol."""
-    check(sum(counts) == len(symbols) == len(set(symbols)), "malformed Huffman table")
-    code, length = np.zeros(256, np.int64), np.zeros(256, np.int64)
-    next_code, k = 0, 0
-    for n_bits, count in enumerate(counts, 1):
-        for _ in range(count):
-            code[symbols[k]], length[symbols[k]] = next_code, n_bits
-            next_code, k = next_code + 1, k + 1
-        next_code <<= 1
-    return code, length
-
-
-def magnitude_bits(v):
-    """The size category of each value and its amplitude bits (T.81 F.1.2.1)."""
-    size = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
-    return size, np.where(v >= 0, v, v + (np.int64(1) << size) - 1)
-
-
-def pack_bits(values, lengths):
-    """Concatenate the codes MSB first, pad with 1 bits, stuff 0x00 after 0xFF."""
-    item = np.repeat(np.arange(len(values)), lengths)
-    last_bit = np.cumsum(lengths) - 1
-    bits = (values[item] >> (last_bit[item] - np.arange(len(item)))) & 1
-    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.int64)]).astype(np.uint8)
-    out = np.packbits(bits)
-    return np.insert(out, np.nonzero(out == 0xFF)[0] + 1, 0).tobytes()
-
-
-def quantised_planes(rgb, quality):
-    """The Y, Cb and Cr planes of quantised zig-zag blocks ([Hb, Wb, 64]
-    each) of an ``[H, W, 3]`` uint8 image whose sides are multiples of
-    16, and the two quant tables (natural order): JFIF YCbCr, 2x2 mean
-    chroma subsampling, float DCT, Annex K tables at IJG ``quality``."""
-    h, w, _ = rgb.shape
-    check(h % 16 == 0 and w % 16 == 0, f"{h}x{w} is not a multiple of 16")
-    r, g, b = np.moveaxis(rgb.astype(np.float64), -1, 0)
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
-    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
-    cb, cr = (c.reshape(h // 2, 2, w // 2, 2).mean((1, 3)) for c in (cb, cr))
-    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    quants = [np.clip((q * scale + 50) // 100, 1, 255) for q in (LUMA_Q, CHROMA_Q)]
-
-    def blocks(plane, quant):
-        hb, wb = plane.shape[0] // 8, plane.shape[1] // 8
-        tiles = (plane - 128).reshape(hb, 8, wb, 8).transpose(0, 2, 1, 3)
-        coef = np.einsum("ux,hwxy,vy->hwuv", DCT, tiles, DCT).reshape(hb, wb, 64)
-        return np.rint(coef / quant).astype(np.int64)[..., ZIGZAG]
-
-    return [blocks(y, quants[0]), blocks(cb, quants[1]), blocks(cr, quants[1])], quants
-
-
-def encode_420(rgb, quality=75):
-    """Baseline sequential JPEG, 4:2:0, of :func:`quantised_planes`."""
-    h, w, _ = rgb.shape
-    (y, cb, cr), quants = quantised_planes(rgb, quality)
-    mh, mw = h // 16, w // 16
-    mcus = np.concatenate([
-        y.reshape(mh, 2, mw, 2, 64).transpose(0, 2, 1, 3, 4).reshape(mh * mw, 4, 64),
-        cb.reshape(mh * mw, 1, 64),
-        cr.reshape(mh * mw, 1, 64),
-    ], 1).reshape(-1, 64)
-    comp = np.tile([0, 0, 0, 0, 1, 2], mh * mw)
-    table = np.minimum(comp, 1)
-    codes = {key: huffman_codes(*spec) for key, spec in HUFFMAN.items()}
-    dc_code, dc_len = (np.stack([codes[0, t][i] for t in (0, 1)]) for i in (0, 1))
-    ac_code, ac_len = (np.stack([codes[1, t][i] for t in (0, 1)]) for i in (0, 1))
-
-    # DC: the difference from the previous block of the same component.
-    n = len(mcus)
-    diff = np.empty(n, np.int64)
-    for c in range(3):
-        diff[comp == c] = np.diff(mcus[comp == c, 0], prepend=0)
-    size, amp = magnitude_bits(diff)
-    parts = [(np.arange(n) * 65, (dc_code[table, size] << size) | amp,
-              dc_len[table, size] + size)]
-
-    # AC: a (run, size) symbol per non-zero coefficient, each after one
-    # ZRL per 16 zeros of its run; EOB where the block's tail is zero.
-    blk, k = np.nonzero(mcus[:, 1:])
-    zz = k + 1
-    first_in_block = np.r_[True, blk[1:] != blk[:-1]]
-    run = zz - np.where(first_in_block, 0, np.r_[0, zz[:-1]]) - 1
-    size, amp = magnitude_bits(mcus[blk, zz])
-    t = table[blk]
-    sym = (run & 15) << 4 | size
-    sym_code = (ac_code[t, sym] << size) | amp
-    sym_len = ac_len[t, sym] + size
-    reps = (run >> 4) + 1
-    src = np.repeat(np.arange(len(zz)), reps)
-    is_sym = np.arange(len(src)) - np.repeat(np.cumsum(reps) - reps, reps) == reps[src] - 1
-    parts.append((blk[src] * 65 + zz[src],
-                  np.where(is_sym, sym_code[src], ac_code[t[src], 0xF0]),
-                  np.where(is_sym, sym_len[src], ac_len[t[src], 0xF0])))
-    last = np.zeros(n, np.int64)
-    block_end = np.r_[first_in_block[1:], True]
-    last[blk[block_end]] = zz[block_end]
-    eob = np.nonzero(last < 63)[0]
-    parts.append((eob * 65 + 64, ac_code[table[eob], 0x00], ac_len[table[eob], 0x00]))
-
-    keys, values, lengths = (np.concatenate(p) for p in zip(*parts))
-    order = np.argsort(keys, kind="stable")
-    scan_data = pack_bits(values[order], lengths[order])
-
-    def segment(marker, payload):
-        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
-
-    return b"".join([
-        b"\xff\xd8",
-        segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"),
-        segment(0xDB, b"".join(bytes([i]) + q[ZIGZAG].astype(np.uint8).tobytes()
-                               for i, q in enumerate(quants))),
-        segment(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
-                + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])),
-        segment(0xC4, b"".join(bytes([cls << 4 | tid]) + bytes(counts) + bytes(symbols)
-                               for (cls, tid), (counts, symbols) in HUFFMAN.items())),
-        segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])),
-        scan_data,
-        b"\xff\xd9",
-    ])
-
-
 def psnr(a, b):
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return 10 * np.log10(255.0 ** 2 / mse)
@@ -1386,17 +1214,6 @@ def device_trace(fn):
     return [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-def covered(spans, start, end):
-    """The time within [start, end] that the union of ``spans`` covers."""
-    total, at = 0.0, start
-    for lo, hi in sorted(spans):
-        lo, hi = max(lo, at), min(hi, end)
-        if hi > lo:
-            total += hi - lo
-            at = hi
-    return total
-
-
 def overlap_stats(events):
     """What a traced stream run shows: the caller's stream (the marking
     spin kernels'), the other streams the path's kernels and copies ran
@@ -1413,7 +1230,7 @@ def overlap_stats(events):
     path = [e for e in events if "spin_kernel" not in e["name"]]
     kernels = [(stream_of(e), e["ts"], e["ts"] + e["dur"]) for e in path if e["cat"] == "kernel"]
     copies = [e for e in path if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
-    overlap = sum(covered([(k0, k1) for ks, k0, k1 in kernels if ks not in (stream_of(c), caller)],
+    overlap = sum(union_s([(k0, k1) for ks, k0, k1 in kernels if ks not in (stream_of(c), caller)],
                           c["ts"], c["ts"] + c["dur"]) for c in copies)
     start = min((e["ts"] for e in path), default=0.0)
     end = max((e["ts"] + e["dur"] for e in path), default=0.0)
@@ -1423,7 +1240,7 @@ def overlap_stats(events):
             "htod": len(copies),
             "pageable": sorted({c["name"] for c in copies if "Pinned" not in c["name"]}),
             "copy_us": float(sum(c["dur"] for c in copies)), "overlap_us": overlap,
-            "busy_us": covered([(k0, k1) for _, k0, k1 in kernels], start, end),
+            "busy_us": union_s([(k0, k1) for _, k0, k1 in kernels], start, end),
             "span_us": end - start}
 
 
@@ -2474,7 +2291,7 @@ def phase_gray_step(dev):
                                                     kernels.transform_matrix(dev))
         return decode_stage.clamp_plane_u16(blocks.reshape(b, hb, wb, 8, 8), precision)
 
-    def plain_k2(plane, quant, level_shift, blocks):
+    def plain_k2(plane, quant, level_shift, *, hs=1, vs=1, blocks=None):  # K2's signature, 1x1
         return encode_stage.fdct_quantize(plane, quant, level_shift, kernels.fdct_matrix(dev))
 
     plain = sharding._gray_step(c, q, 12, plain_k1, plain_k2,
@@ -2502,7 +2319,7 @@ def phase_gray_step(dev):
                            lambda: plain_k1(c, q, 12),
                            bound(4 * samples + 256, n * 2 * 64 * 64, 4 * samples)),
         "K2 uint16 load": (lambda: kernels.fdct_quantize(plane, q, 2048, blocks=(b * hb, wb)),
-                           lambda: plain_k2(plane, q, 2048, None),
+                           lambda: plain_k2(plane, q, 2048),
                            bound(4 * samples + 256, n * 2 * 64 * 64, 2 * samples)),
         "K5": (lambda: encode_stage.symbol_histograms_device(out[1]),
                lambda: encode_stage.symbol_histograms_plain(out[1]),

@@ -89,6 +89,11 @@ TPU kernel: the JAX step leaves these ops to XLA, which fuses them
 tensors and takes the plain version (``color.round_trip_420_plain``, the
 same chain in plain ops) only for CPU tensors; the two equal byte for
 byte.
+
+Every wrapper checks its inputs, picks its route with :func:`_on_cuda`
+and launches through :func:`_launch`, the one place that loads the
+library, passes the device's current stream, checks the C entry's return
+code and counts the launch (K3's sync call reads its own).
 """
 
 from __future__ import annotations
@@ -133,6 +138,38 @@ def count_launch(wrapper, box=None, **last) -> None:
             setattr(wrapper, name, value)
 
 
+def _on_cuda(device: torch.device, label: str) -> bool:
+    """Where a wrapper runs: False on the CPU (its plain version), True on
+    a CUDA device (its kernel, ``label``); raises on any other device."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no {label} kernel for device {device}")
+    return True
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or where it starts off a 16-byte boundary (a view into a
+    larger tensor) a copy in a fresh, aligned allocation: the kernels copy
+    and load 16 bytes at a time."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _launch(label: str, wrapper, entry: str, device: torch.device, *args, box=None,
+            **last) -> None:
+    """One call of the library's C entry ``entry`` with ``args`` and the
+    current stream of ``device``, under that device's guard. Raises
+    RuntimeError on a non-zero return code, else counts the launch on
+    ``wrapper`` (``box`` and ``last`` as :func:`count_launch` takes
+    them)."""
+    fn = getattr(_build.load_library(), entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{label} launch failed: CUDA error {err}")
+    count_launch(wrapper, box=box, **last)
+
+
 def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
                           level_shift: int, *, blocks_per_table: Optional[int] = None,
                           scale_n: int = 8) -> torch.Tensor:
@@ -175,34 +212,20 @@ def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
     device = coeffs_zz.device
     matrix = transform_matrix(device, scale_n)
     shape = coeffs_zz.shape[:-1] + (scale_n, scale_n)
-    if device.type == "cpu":
+    if not _on_cuda(device, "K1"):
         return decode_stage.dequantize_idct_shift(
             coeffs_zz, quants_zz, blocks_per_table, level_shift, matrix).reshape(shape)
-    if device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {device}")
     if not (coeffs_zz.is_contiguous() and quants_zz.is_contiguous()):
         raise ValueError("coefficients and quant must be contiguous")
 
     out = torch.empty(shape, dtype=torch.int32, device=device)
     if n_blocks == 0:
         return out
-    # The kernel copies and loads 16 bytes at a time; a view that starts
-    # off that alignment is copied to a fresh (aligned) allocation.
-    if coeffs_zz.data_ptr() % 16:
-        coeffs_zz = coeffs_zz.clone()
-    if quants_zz.data_ptr() % 16:
-        quants_zz = quants_zz.clone()
-    lib = _build.load_library()
-    fn = lib.jpx_dequant_idct_i32 if coeffs_zz.dtype == torch.int32 else lib.jpx_dequant_idct_i16
-    with torch.cuda.device(device):
-        err = fn(
+    coeffs_zz, quants_zz = _aligned(coeffs_zz), _aligned(quants_zz)
+    entry = "jpx_dequant_idct_i32" if coeffs_zz.dtype == torch.int32 else "jpx_dequant_idct_i16"
+    _launch("K1", dequantize_idct_shift, entry, device,
             coeffs_zz.data_ptr(), quants_zz.data_ptr(), matrix.data_ptr(), out.data_ptr(),
-            n_blocks, blocks_per_table, scale_n * scale_n, int(level_shift),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-    count_launch(dequantize_idct_shift)
+            n_blocks, blocks_per_table, scale_n * scale_n, int(level_shift))
     return out
 
 
@@ -241,12 +264,10 @@ def dequantize_idct_plane(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
     n_blocks = b * hb * wb
     device = coeffs_zz.device
     matrix = transform_matrix(device)
-    if device.type == "cpu":
+    if not _on_cuda(device, "K1"):
         samples = decode_stage.dequantize_idct_shift(coeffs_zz, quant_zz, max(n_blocks, 1),
                                                      level_shift, matrix)
         return decode_stage.clamp_plane_u16(samples.reshape(b, hb, wb, 8, 8), precision)
-    if device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {device}")
     for name, t in (("coefficients", coeffs_zz), ("quant", quant_zz)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -256,15 +277,9 @@ def dequantize_idct_plane(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
     out = torch.empty((b, hb * 8, wb * 8), dtype=torch.uint16, device=device)
     if n_blocks == 0:
         return out
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        err = lib.jpx_dequant_idct_plane_u16(
+    _launch("K1 plane", dequantize_idct_plane, "jpx_dequant_idct_plane_u16", device,
             coeffs_zz.data_ptr(), quant_zz.data_ptr(), matrix.data_ptr(), out.data_ptr(),
-            n_blocks, n_blocks, wb, level_shift, max_sample,
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K1 plane launch failed: CUDA error {err}")
-    count_launch(dequantize_idct_plane)
+            n_blocks, n_blocks, wb, level_shift, max_sample)
     return out
 
 
@@ -355,12 +370,10 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
     if quant_zz.device != plane.device:
         raise ValueError(f"quant on {quant_zz.device}, samples on {plane.device}")
     device = plane.device
-    if device.type == "cpu":
+    if not _on_cuda(device, "K2"):
         padded = encode_stage.pad_to_grid(plane, hb * 8 * vs, wb * 8 * hs)
         return encode_stage.fdct_quantize(encode_stage.subsample_box(padded, hs, vs),
                                           quant_zz, level_shift, fdct_matrix(device))
-    if device.type != "cuda":
-        raise ValueError(f"no K2 kernel for device {device}")
     if not quant_zz.is_contiguous():
         raise ValueError("quant must be contiguous")
 
@@ -368,18 +381,11 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
     if out.numel() == 0:
         return out
     split = fdct_split_operand(device)
-    lib = _build.load_library()
-    fn = {torch.int32: lib.jpx_fdct_quant_i32, torch.uint16: lib.jpx_fdct_quant_u16,
-          torch.uint8: lib.jpx_fdct_quant_u8}[plane.dtype]
-    with torch.cuda.device(device):
-        err = fn(
+    entry = {torch.int32: "jpx_fdct_quant_i32", torch.uint16: "jpx_fdct_quant_u16",
+             torch.uint8: "jpx_fdct_quant_u8"}[plane.dtype]
+    _launch("K2", fdct_quantize, entry, device,
             plane.data_ptr(), quant_zz.data_ptr(), split.data_ptr(), out.data_ptr(),
-            h, w, hb, wb, hs, vs, int(level_shift),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed: CUDA error {err}")
-    count_launch(fdct_quantize, box=(plane.dtype, hs, vs))
+            h, w, hb, wb, hs, vs, int(level_shift), box=(plane.dtype, hs, vs))
     return out
 
 
@@ -448,10 +454,8 @@ def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Ten
     for t in (comp_of, mcu_counts, *tables):
         if t.device != device:
             raise ValueError(f"a table on {t.device}, the segments on {device}")
-    if device.type == "cpu":
+    if not _on_cuda(device, "K3"):
         return device_scan.decode_segments_plain(buf, comp_of, mcu_counts, *tables, max_blocks)
-    if device.type != "cuda":
-        raise ValueError(f"no K3 kernel for device {device}")
     if not all(t.is_contiguous() for t in (buf, comp_of, mcu_counts, *tables)):
         raise ValueError("the segments and tables must be contiguous")
 
@@ -471,12 +475,14 @@ def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Ten
     rounds = ctypes.c_int(0)
     shape = (buf.data_ptr(), buf.shape[1], n_segs, n_sub, sub_bits, comp_of.data_ptr(),
              comp_of.shape[0], n_comps)
-    lib = _build.load_library()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.jpx_huffman_sync(*shape, *(t.data_ptr() for t in tables), starts.data_ptr(),
-                                   exits.data_ptr(), n_blk.data_ptr(), dsum.data_ptr(),
-                                   flag.data_ptr(), ctypes.byref(rounds), stream)
+        # The one call that reads its return code itself, and not through
+        # _launch: besides a CUDA error it returns -1 when the rounds do not
+        # settle.
+        err = _build.load_library().jpx_huffman_sync(
+            *shape, *(t.data_ptr() for t in tables), starts.data_ptr(), exits.data_ptr(),
+            n_blk.data_ptr(), dsum.data_ptr(), flag.data_ptr(), ctypes.byref(rounds),
+            torch.cuda.current_stream(device).cuda_stream)
         if err == -1:
             raise RuntimeError(f"K3's sync rounds did not settle in {n_sub} rounds")
         if err != 0:
@@ -484,13 +490,10 @@ def huffman_scan(buf: torch.Tensor, comp_of: torch.Tensor, mcu_counts: torch.Ten
         block0, pred0 = device_scan.subsequence_offsets(n_blk.view(n_segs, n_sub),
                                                         dsum.view(n_segs, n_sub, n_comps))
         block0, pred0 = block0.contiguous(), pred0.contiguous()
-        err = lib.jpx_huffman_write(*shape, mcu_counts.data_ptr(),
-                                    *(t.data_ptr() for t in tables), starts.data_ptr(),
-                                    block0.data_ptr(), pred0.data_ptr(), out.data_ptr(),
-                                    max_blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"K3 write launch failed: CUDA error {err}")
-    count_launch(huffman_scan, rounds=rounds.value)
+    _launch("K3 write", huffman_scan, "jpx_huffman_write", device,
+            *shape, mcu_counts.data_ptr(), *(t.data_ptr() for t in tables), starts.data_ptr(),
+            block0.data_ptr(), pred0.data_ptr(), out.data_ptr(), max_blocks,
+            rounds=rounds.value)
     return out
 
 
@@ -523,27 +526,21 @@ def butterfly_idct_shift(coeffs_zz: torch.Tensor, quant_zz: torch.Tensor,
         raise ValueError(f"quant on {quant_zz.device}, coefficients on {coeffs_zz.device}")
     device = coeffs_zz.device
     hb, wb = coeffs_zz.shape[0], coeffs_zz.shape[1]
-    if device.type == "cpu":
+    if not _on_cuda(device, "K4"):
         return decode_stage.blocks_to_plane(
             decode_stage.dequantize_idct_shift_exact(coeffs_zz, quant_zz, level_shift))
-    if device.type != "cuda":
-        raise ValueError(f"no K4 kernel for device {device}")
     if not (coeffs_zz.is_contiguous() and quant_zz.is_contiguous()):
         raise ValueError("coefficients and quant must be contiguous")
 
     out = torch.empty((hb * 8, wb * 8), dtype=torch.int32, device=device)
     if out.numel() == 0:
         return out
-    if coeffs_zz.data_ptr() % 16:  # the kernel loads 16 bytes at a time
-        coeffs_zz = coeffs_zz.clone()
-    lib = _build.load_library()
-    fn = lib.jpx_butterfly_idct_i32 if coeffs_zz.dtype == torch.int32 else lib.jpx_butterfly_idct_i16
-    with torch.cuda.device(device):
-        err = fn(coeffs_zz.data_ptr(), quant_zz.data_ptr(), out.data_ptr(), hb * wb, wb,
-                 int(level_shift), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K4 launch failed: CUDA error {err}")
-    count_launch(butterfly_idct_shift)
+    coeffs_zz = _aligned(coeffs_zz)
+    entry = ("jpx_butterfly_idct_i32" if coeffs_zz.dtype == torch.int32
+             else "jpx_butterfly_idct_i16")
+    _launch("K4", butterfly_idct_shift, entry, device,
+            coeffs_zz.data_ptr(), quant_zz.data_ptr(), out.data_ptr(), hb * wb, wb,
+            int(level_shift))
     return out
 
 
@@ -581,34 +578,26 @@ def symbol_histograms(blocks, n_valid: Optional[torch.Tensor] = None,
             raise ValueError(f"{name} on {t.device}, blocks on {device}")
         if tuple(t.shape) != (rows,) or t.is_floating_point() or t.is_complex():
             raise ValueError(f"{name} must be an integer [{rows}], got {t.dtype} {tuple(t.shape)}")
-    if device.type == "cpu":
+    if not _on_cuda(device, "K5"):
         return encode_stage.symbol_histograms_plain(blocks, n_valid, prev_dc, mcu=mcu)
-    if device.type != "cuda":
-        raise ValueError(f"no K5 kernel for device {device}")
     if not all(x.is_contiguous() for x in planes):
         raise ValueError("blocks must be contiguous")
 
     out = torch.zeros((2, 256), dtype=torch.int32, device=device)
     if rows * hb * wb == 0:
         return out[0], out[1]
-    # The kernel copies whole blocks of 16-byte-aligned planes.
-    planes = [x.clone() if x.data_ptr() % 16 else x for x in planes]
+    planes = [_aligned(x) for x in planes]
     if n_valid is not None:
         n_valid = n_valid.clamp(0, hb * wb).to(torch.int32).contiguous()
     if prev_dc is not None:
         prev_dc = prev_dc.to(torch.int32).contiguous()
     ptrs = [x.data_ptr() for x in planes] + [None] * (encode_stage.MAX_PLANES - len(planes))
-    lib = _build.load_library()
-    fn = (lib.jpx_symbol_histograms_i32 if planes[0].dtype == torch.int32
-          else lib.jpx_symbol_histograms_i16)
-    with torch.cuda.device(device):
-        err = fn(*ptrs, len(planes), b, hb, wb, h, v,
-                 None if n_valid is None else n_valid.data_ptr(),
-                 None if prev_dc is None else prev_dc.data_ptr(), out.data_ptr(),
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K5 launch failed: CUDA error {err}")
-    count_launch(symbol_histograms)
+    entry = ("jpx_symbol_histograms_i32" if planes[0].dtype == torch.int32
+             else "jpx_symbol_histograms_i16")
+    _launch("K5", symbol_histograms, entry, device,
+            *ptrs, len(planes), b, hb, wb, h, v,
+            None if n_valid is None else n_valid.data_ptr(),
+            None if prev_dc is None else prev_dc.data_ptr(), out.data_ptr())
     return out[0], out[1]
 
 
@@ -659,25 +648,17 @@ def color_round_trip(y_samples: torch.Tensor, cb_samples: torch.Tensor,
             raise ValueError(f"{name} samples must be [{b}, {hb // 2}, {wb // 2}, 8, 8] "
                              f"(4:2:0), got {tuple(s.shape)}")
     device = y_samples.device
-    if device.type == "cpu":
+    if not _on_cuda(device, "K6"):
         return color.round_trip_420_plain(*samples)
-    if device.type != "cuda":
-        raise ValueError(f"no K6 kernel for device {device}")
 
     h, w = hb * 8, wb * 8
     rgb = torch.empty((b, h, w, 3), dtype=torch.uint8, device=device)
     planes = [torch.empty((b, h, w), dtype=torch.uint8, device=device) for _ in range(3)]
     if rgb.numel() == 0:
         return (rgb, *planes)
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        err = lib.jpx_color_round_trip(
+    _launch("K6", color_round_trip, "jpx_color_round_trip", device,
             *(s.data_ptr() for s in samples), rgb.data_ptr(), *(p.data_ptr() for p in planes),
-            b * hb // 2, wb // 2, ctypes.addressof(_round_trip_constants()),
-            torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K6 launch failed: CUDA error {err}")
-    count_launch(color_round_trip)
+            b * hb // 2, wb // 2, ctypes.addressof(_round_trip_constants()))
     return (rgb, *planes)
 
 

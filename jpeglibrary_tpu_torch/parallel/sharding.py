@@ -130,21 +130,22 @@ def _from_local(local: torch.Tensor, mesh, sharded: Dict[str, int]):
     return DTensor.from_local(local, mesh, _placements(mesh, sharded), run_check=False)
 
 
-def _fdct_quantize_batch(planes: torch.Tensor, qt_zz: torch.Tensor, *, hs: int = 1,
-                         vs: int = 1, k2=kernels.fdct_quantize) -> torch.Tensor:
-    """[B, H, W] uint8 or int32 samples -> int16 [B, H/(8 vs), W/(8 hs), 64]
-    zig-zag coefficients: the (hs, vs) box ``(sum + n/2) // n``, level
-    shift 128, FDCT and quantize; JAX's ``_fdct_quantize_batch`` (after
-    ``box2x2`` at hs = vs = 2). One K2 launch for the batch: the images
-    stack as one [B*H, W] plane, and since H is a multiple of 8 vs no
-    block row crosses from one image into the next (one launch per image
-    would pay a launch and a ragged last wave per image). ``k2`` is K2's
-    wrapper, or a function of the same signature (its plain version)."""
+def _fdct_quantize_batch(planes: torch.Tensor, qt_zz: torch.Tensor, *, level_shift: int = 128,
+                         hs: int = 1, vs: int = 1, k2=kernels.fdct_quantize) -> torch.Tensor:
+    """[B, H, W] uint8, uint16 or int32 samples -> int16 [B, H/(8 vs),
+    W/(8 hs), 64] zig-zag coefficients: the (hs, vs) box ``(sum + n/2) //
+    n``, the level shift (128 for 8-bit samples, 2^(P - 1) at precision
+    P), FDCT and quantize; JAX's ``_fdct_quantize_batch`` (after ``box2x2``
+    at hs = vs = 2). One K2 launch for the batch: the images stack as one
+    [B*H, W] plane, and since H is a multiple of 8 vs no block row crosses
+    from one image into the next (one launch per image would pay a launch
+    and a ragged last wave per image). ``k2`` is K2's wrapper, or a
+    function of the same signature (its plain version)."""
     b, h, w = planes.shape
     if h % (8 * vs) or w % (8 * hs):
         raise ValueError(f"{h} x {w} planes are not whole blocks at ({hs}, {vs})")
     hb, wb = h // (8 * vs), w // (8 * hs)
-    out = k2(planes.reshape(b * h, w), qt_zz, 128, hs=hs, vs=vs, blocks=(b * hb, wb))
+    out = k2(planes.reshape(b * h, w), qt_zz, level_shift, hs=hs, vs=vs, blocks=(b * hb, wb))
     return out.reshape(b, hb, wb, 64)
 
 
@@ -168,8 +169,7 @@ def full_step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, *, device):
     and inside it :func:`_step`'s stage spans."""
     with span("full_step"):
         rgb, requant, hists = _step(*_step_inputs(y_coeffs, cb_coeffs, cr_coeffs, qt_luma,
-                                                  qt_chroma, device),
-                                    kernels.dequantize_idct_shift, kernels.fdct_quantize)
+                                                  qt_chroma, device))
     return rgb, requant[0], hists
 
 
@@ -185,14 +185,16 @@ def _step_inputs(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, device):
             _on_device(qt_luma, torch.int32, device), _on_device(qt_chroma, torch.int32, device))
 
 
-def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1, k2, chain_prev=None,
-          k5=encode_stage.symbol_histograms_device, k6=kernels.color_round_trip):
+def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1=kernels.dequantize_idct_shift,
+          k2=kernels.fdct_quantize, chain_prev=None, k5=encode_stage.symbol_histograms_device,
+          k6=kernels.color_round_trip):
     """:func:`full_step` on tensors of one device, with K1's and K2's
     wrappers (or functions of their signatures: their plain versions, the
     yardstick ``chip_smoke.py`` holds the step to on the card) as ``k1``
     and ``k2``, the symbol statistics as ``k5`` (through K5's wrapper, or
     ``encode_stage.symbol_histograms_plain``) and the colour round trip as
-    ``k6`` (K6's wrapper, or ``color.round_trip_420_plain``). Returns (rgb,
+    ``k6`` (K6's wrapper, or ``color.round_trip_420_plain``); the defaults
+    are the kernels the step runs. Returns (rgb,
     (requant_y, requant_cb, requant_cr), hists): the step's outputs with
     the requantised chroma it counts besides.
 
@@ -255,30 +257,28 @@ def gray_step(coeffs, qt, *, precision: int = 12, device):
     inside it :func:`_gray_step`'s stage spans."""
     with span("gray_step"):
         return _gray_step(_on_device(coeffs, torch.int16, device),
-                          _on_device(qt, torch.int32, device), precision,
-                          kernels.dequantize_idct_plane, kernels.fdct_quantize)
+                          _on_device(qt, torch.int32, device), precision)
 
 
-def _gray_step(coeffs, qt, precision: int, k1, k2, chain_prev=None,
+def _gray_step(coeffs, qt, precision: int, k1=kernels.dequantize_idct_plane,
+               k2=kernels.fdct_quantize, chain_prev=None,
                k5=encode_stage.symbol_histograms_device):
     """:func:`gray_step` on tensors of one device, with K1's plane store and
     K2's wrappers (or functions of their signatures: their plain versions)
     as ``k1`` and ``k2`` and the symbol statistics as ``k5``, as
-    :func:`_step` takes them. ``chain_prev``, where given, maps the last DC
+    :func:`_step` takes them (the defaults the kernels the step runs).
+    ``chain_prev``, where given, maps the last DC
     of each of the B chains ([B] int32) to the DC before its first block
     (the sharded step's boundary exchange).
 
     Every op the step runs lies in one of three spans, in this order:
     ``gray_step.decode`` (K1), ``gray_step.fdct`` (K2 on the B planes
-    stacked as one [B*H, W] plane, as :func:`_fdct_quantize_batch` stacks
-    them) and ``gray_step.stats`` (``chain_prev``, K5 and the histograms'
-    stack)."""
-    b, hb, wb, _ = coeffs.shape
+    stacked as one [B*H, W] plane by :func:`_fdct_quantize_batch`) and
+    ``gray_step.stats`` (``chain_prev``, K5 and the histograms' stack)."""
     with span("gray_step.decode"):
         samples = k1(coeffs.contiguous(), qt, precision)
     with span("gray_step.fdct"):
-        requant = k2(samples.view(b * hb * 8, wb * 8), qt, 1 << (precision - 1),
-                     blocks=(b * hb, wb)).view(b, hb, wb, 64)
+        requant = _fdct_quantize_batch(samples, qt, level_shift=1 << (precision - 1), k2=k2)
     with span("gray_step.stats"):
         prev = None
         if chain_prev is not None:
@@ -301,6 +301,40 @@ def _prev_across(mesh, dim: str):
     return chain_prev
 
 
+def _make_sharded(mesh, shard_step):
+    """The mesh form of a re-encoding step, what :func:`make_sharded_full_step`
+    and :func:`make_sharded_gray_step` share: the batch over ``data`` and
+    the block rows over ``stripe``, each rank's DC chains taking the
+    previous stripe's last DC, the histograms all-reduced over the mesh.
+
+    ``shard_step(args, rows, stripe, n_stripe, device, chain_prev)`` checks
+    the shapes of the step's arguments ``args``, slices the rank's shard
+    (the batch ``rows``, block-row stripe ``stripe`` of ``n_stripe``) and
+    runs the step on it on ``device`` with ``chain_prev``; it returns the
+    two outputs sharded over the batch and the rows, and the rank's
+    histograms. The returned function takes ``args``, the same on every
+    rank, and raises unless the batch divides over ``data``."""
+    check_mesh(mesh)
+    n_data, n_stripe = mesh["data"].size(), mesh["stripe"].size()
+    d, s = mesh.get_local_rank("data"), mesh.get_local_rank("stripe")
+    device = mesh_device(mesh)
+    chain_prev = _prev_across(mesh, "stripe")
+
+    def step(*args):
+        b = args[0].shape[0]
+        if b % n_data:
+            raise ValueError(f"a batch of {b} does not divide over {n_data} data ranks")
+        bl = b // n_data
+        first, second, hists = shard_step(args, slice(d * bl, (d + 1) * bl), s, n_stripe,
+                                          device, chain_prev)
+        hists = collectives.all_reduce_sum(hists)  # the mesh is the whole world
+        return (_from_local(first, mesh, {"data": 0, "stripe": 1}),
+                _from_local(second, mesh, {"data": 0, "stripe": 1}),
+                _from_local(hists, mesh, {}))
+
+    return step
+
+
 def make_sharded_full_step(mesh):
     """:func:`full_step` over ``mesh``: the batch over ``data`` and the luma
     block rows over ``stripe`` (the chroma rows follow at half), as JAX's
@@ -315,35 +349,23 @@ def make_sharded_full_step(mesh):
     :func:`full_step`'s outputs. A shard must hold whole 4:2:0 MCU rows:
     the batch divides over ``data`` and an even number of luma block rows
     falls to each stripe, or it raises."""
-    check_mesh(mesh)
-    n_data, n_stripe = mesh["data"].size(), mesh["stripe"].size()
-    d, s = mesh.get_local_rank("data"), mesh.get_local_rank("stripe")
-    device = mesh_device(mesh)
-    chain_prev = _prev_across(mesh, "stripe")
-
-    def step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma):
+    def shard_step(args, rows, s, n_stripe, device, chain_prev):
+        y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma = args
         b, hb, wb = y_coeffs.shape[:3]
-        if b % n_data:
-            raise ValueError(f"a batch of {b} does not divide over {n_data} data ranks")
         if hb % (2 * n_stripe):
             raise ValueError(f"{hb} luma block rows are no whole MCU rows on each of "
                              f"{n_stripe} stripes")
         if tuple(cb_coeffs.shape[:3]) != (b, hb // 2, wb // 2) or cr_coeffs.shape != cb_coeffs.shape:
             raise ValueError("chroma must be [B, Hb/2, Wb/2, 64] (4:2:0)")
-        bl, hl = b // n_data, hb // n_stripe
-        rows = slice(d * bl, (d + 1) * bl)
+        hl = hb // n_stripe
         y = y_coeffs[rows, s * hl:(s + 1) * hl]
         cb = cb_coeffs[rows, s * hl // 2:(s + 1) * hl // 2]
         cr = cr_coeffs[rows, s * hl // 2:(s + 1) * hl // 2]
         rgb, requant, hists = _step(*_step_inputs(y, cb, cr, qt_luma, qt_chroma, device),
-                                    kernels.dequantize_idct_shift, kernels.fdct_quantize,
-                                    chain_prev)
-        hists = collectives.all_reduce_sum(hists)  # the mesh is the whole world
-        return (_from_local(rgb, mesh, {"data": 0, "stripe": 1}),
-                _from_local(requant[0], mesh, {"data": 0, "stripe": 1}),
-                _from_local(hists, mesh, {}))
+                                    chain_prev=chain_prev)
+        return rgb, requant[0], hists
 
-    return step
+    return _make_sharded(mesh, shard_step)
 
 
 def make_sharded_gray_step(mesh, *, precision: int = 12):
@@ -358,29 +380,18 @@ def make_sharded_gray_step(mesh, *, precision: int = 12):
     sharded ``[Shard(0), Shard(1)]`` and hists as a replicated DTensor,
     equal to :func:`gray_step`'s outputs. The batch must divide over
     ``data`` and the block rows over ``stripe``, or it raises."""
-    check_mesh(mesh)
-    n_data, n_stripe = mesh["data"].size(), mesh["stripe"].size()
-    d, s = mesh.get_local_rank("data"), mesh.get_local_rank("stripe")
-    device = mesh_device(mesh)
-    chain_prev = _prev_across(mesh, "stripe")
-
-    def step(coeffs, qt):
-        b, hb = coeffs.shape[:2]
-        if b % n_data:
-            raise ValueError(f"a batch of {b} does not divide over {n_data} data ranks")
+    def shard_step(args, rows, s, n_stripe, device, chain_prev):
+        coeffs, qt = args
+        hb = coeffs.shape[1]
         if hb % n_stripe:
             raise ValueError(f"{hb} block rows do not divide over {n_stripe} stripes")
-        bl, hl = b // n_data, hb // n_stripe
-        local = coeffs[d * bl:(d + 1) * bl, s * hl:(s + 1) * hl]
-        samples, requant, hists = _gray_step(
-            _on_device(local, torch.int16, device), _on_device(qt, torch.int32, device),
-            precision, kernels.dequantize_idct_plane, kernels.fdct_quantize, chain_prev)
-        hists = collectives.all_reduce_sum(hists)  # the mesh is the whole world
-        return (_from_local(samples, mesh, {"data": 0, "stripe": 1}),
-                _from_local(requant, mesh, {"data": 0, "stripe": 1}),
-                _from_local(hists, mesh, {}))
+        hl = hb // n_stripe
+        local = coeffs[rows, s * hl:(s + 1) * hl]
+        return _gray_step(_on_device(local, torch.int16, device),
+                          _on_device(qt, torch.int32, device), precision,
+                          chain_prev=chain_prev)
 
-    return step
+    return _make_sharded(mesh, shard_step)
 
 
 def mesh_symbol_frequencies(blocks: np.ndarray, mesh):

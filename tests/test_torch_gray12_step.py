@@ -2,7 +2,8 @@
 batch of one-component frames at 12 (and 8) bits, a CT series a step.
 
 On the CPU the step runs its kernels' plain versions: it is held to the
-plain float64 reference (``reference_gray12.py``, which imports nothing of
+plain float64 reference of the benchmark's CT cell
+(``jpegbench/reference/recompress_gray12.py``, which imports nothing of
 the port) on seeded frames and random coefficients at small sizes, ragged
 block grids among them: the samples within one level on at most the share
 the benchmark's limit allows, the histograms exact against the reference's
@@ -31,8 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import reference_gray12 as reference
-
+from jpegbench.reference import recompress_gray12 as reference
 from jpeglibrary_tpu_torch.host.syntax.quantization import (
     scale_by_quality,
     standard_luminance_table,

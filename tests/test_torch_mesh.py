@@ -12,6 +12,10 @@ here. Held:
   wb = 16; at stripe 2 each DC chain crosses a stripe boundary): all three
   outputs exactly JAX's ``make_sharded_full_step(make_mesh(n, stripe))``
   and the port's own single-device step;
+- ``make_sharded_full_step`` and ``make_sharded_gray_step`` at meshes
+  (2, 1) and (2, 2): a batch that does not divide over ``data``, block
+  rows that do not divide over ``stripe`` or are no whole 4:2:0 MCU rows,
+  and chroma that is not 4:2:0 each raise ValueError with its message;
 - ``decode_rgb_sharded`` over 4 stripes of synthetic images: the v2 wire,
   the v1 wire (``JPX_WIRE=1``), progressive (the host copy's
   ``encode_progressive_rgb``), arithmetic (``transcode(mode="arithmetic")``)
@@ -114,18 +118,50 @@ def world4():
     return {name: [r[i] for r in ranks] for i, (name, _) in enumerate(jobs)}
 
 
+#: name: (the sharded step, its mesh (n, stripe), its arguments' [B, Hb, Wb]
+#: with the chroma's, the ValueError's text). At world 2 the batch can fail to
+#: divide, which no batch does at world 1.
+REFUSALS = {
+    "full_batch": ("full", (2, 1), ((3, 4, 4), (3, 2, 2)),
+                   "a batch of 3 does not divide over 2 data ranks"),
+    "full_rows_over_stripes": ("full", (2, 2), ((2, 5, 4), (2, 2, 2)),
+                               "5 luma block rows are no whole MCU rows on each of 2 stripes"),
+    "full_half_mcu_rows": ("full", (2, 2), ((2, 6, 4), (2, 3, 2)),
+                           "6 luma block rows are no whole MCU rows on each of 2 stripes"),
+    "full_not_420": ("full", (2, 1), ((2, 4, 4), (2, 4, 4)),
+                     "chroma must be [B, Hb/2, Wb/2, 64] (4:2:0)"),
+    "gray_batch": ("gray", (2, 1), ((3, 4, 4),), "a batch of 3 does not divide over 2 data ranks"),
+    "gray_rows_over_stripes": ("gray", (2, 2), ((2, 5, 4),),
+                               "5 block rows do not divide over 2 stripes"),
+}
+
+
+def _refusal_cases():
+    """``REFUSALS`` as ``workers.sharded_refusals`` takes them: zero
+    coefficients of those shapes and the standard tables."""
+    q_luma, q_chroma = (t.astype(np.int32) for t in (STANDARD_LUMINANCE_ZIGZAG,
+                                                      STANDARD_CHROMINANCE_ZIGZAG))
+    cases = []
+    for name, (step, shape, blocks, _) in REFUSALS.items():
+        coeffs = [np.zeros(b + (64,), np.int16) for b in blocks]
+        args = (coeffs[0], coeffs[1], coeffs[1], q_luma, q_chroma) if step == "full" else (
+            coeffs[0], q_luma)
+        cases.append((name, step, shape, args))
+    return cases
+
+
 @pytest.fixture(scope="module")
 def world2():
-    ranks = distributed.spawn(workers.sharded_steps, 2, [(2, 1), (2, 2)], _example(),
-                              backend="gloo", timeout=SPAWN_TIMEOUT)
-    return ranks
+    jobs = [("sharded_steps", ([(2, 1), (2, 2)], _example())),
+            ("sharded_refusals", (_refusal_cases(),))]
+    ranks = distributed.spawn(workers.run, 2, jobs, backend="gloo", timeout=SPAWN_TIMEOUT)
+    return {name: [r[i] for r in ranks] for i, (name, _) in enumerate(jobs)}
 
 
 @pytest.mark.parametrize("world,n,stripe", [(4, 4, 2), (2, 2, 1), (2, 2, 2)])
 def test_sharded_full_step_matches_jax(request, world, n, stripe):
     args = _example()
-    ranks = (request.getfixturevalue("world4")["sharded_steps"] if world == 4
-             else request.getfixturevalue("world2"))
+    ranks = request.getfixturevalue(f"world{world}")["sharded_steps"]
     want = [np.asarray(x) for x in ref_sharding.make_sharded_full_step(
         ref_sharding.make_mesh(n, stripe=stripe))(*args)]
     single = [x.numpy() for x in sharding.full_step(*args, device="cpu")]
@@ -138,6 +174,17 @@ def test_sharded_full_step_matches_jax(request, world, n, stripe):
             assert g.dtype == s.dtype
             np.testing.assert_array_equal(g, w)
             np.testing.assert_array_equal(g, s)
+
+
+@pytest.mark.parametrize("name", list(REFUSALS))
+def test_sharded_steps_refuse_shards_they_cannot_cut(world2, name):
+    """Both sharded steps refuse, on every rank and before any exchange, a
+    batch that does not divide over ``data`` and block rows that do not
+    fall in whole rows (whole 4:2:0 MCU rows for the full step) to each
+    stripe; the full step refuses chroma that is not 4:2:0."""
+    want = ("ValueError", REFUSALS[name][3])
+    for rank in world2["sharded_refusals"]:
+        assert rank[name] == want
 
 
 @pytest.mark.parametrize("name", ["v2", "v1", "progressive", "arithmetic", "lossless"])

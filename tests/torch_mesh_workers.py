@@ -62,6 +62,28 @@ def sharded_gray_steps(meshes, coeffs, qt) -> dict:
     return out
 
 
+def sharded_refusals(cases) -> dict:
+    """Each (name, step, mesh shape, arguments) of ``cases`` through
+    ``make_sharded_full_step`` (step ``"full"``) or ``make_sharded_gray_step``
+    (``"gray"``) over that mesh: the type and text of what the call raised,
+    or None."""
+    from jpeglibrary_tpu_torch.parallel import sharding
+
+    _setup()
+    makers = {"full": sharding.make_sharded_full_step,
+              "gray": sharding.make_sharded_gray_step}
+    meshes, out = {}, {}
+    for name, step, shape, args in cases:
+        if shape not in meshes:
+            meshes[shape] = _mesh(*shape)
+        try:
+            makers[step](meshes[shape])(*(torch.from_numpy(a) for a in args))
+            out[name] = None
+        except Exception as e:  # recorded, whatever it is, for the test to judge
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
 def stripe_decodes(shape, cases) -> dict:
     """``decode_rgb_sharded`` of each (name, data, wire_v1) case over the
     mesh ``shape``: the assembled planar RGB and the stripe heights."""
