@@ -431,6 +431,7 @@ def reset_counts():
     kernels.dequantize_idct_shift.launches = 0
     kernels.fdct_quantize.launches = 0
     kernels.fdct_quantize.launches_by_box.clear()
+    kernels.fdct_quantize.launches_by_walk.clear()
     kernels.huffman_scan.launches = 0
     kernels.butterfly_idct_shift.launches = 0
     kernels.symbol_histograms.launches = 0
@@ -1965,6 +1966,9 @@ def phase_full_step(inputs, dev):
         f"K2 launches {k2_launches}, K5 launches {k5_launches}")
     check((k1_launches, k6_launches, k2_launches, k5_launches) == (3, 1, 3, 2),
           ("full_step launches", k1_launches, k6_launches, k2_launches, k5_launches))
+    k2_walks = dict(kernels.fdct_quantize.launches_by_walk)
+    log(f"full step: K2 launches by walk {k2_walks}")
+    check(k2_walks == {"warpgroups": 3}, ("full_step's K2 walks", k2_walks))
     b = y.shape[0]
     check(tuple(rgb.shape) == (b, SIZE, SIZE, 3) and rgb.dtype == torch.uint8, rgb.shape)
     check(requant.shape == args[0].shape and requant.dtype == torch.int16, requant.shape)
@@ -2283,8 +2287,10 @@ def phase_gray_step(dev):
     torch.cuda.synchronize()
     launches = (kernels.dequantize_idct_plane.launches, kernels.fdct_quantize.launches,
                 kernels.symbol_histograms.launches)
-    log(f"gray_step launches (K1 plane, K2, K5): {launches}")
+    k2_walks = dict(kernels.fdct_quantize.launches_by_walk)
+    log(f"gray_step launches (K1 plane, K2, K5): {launches}; K2's by walk {k2_walks}")
     check(launches == (1, 1, 1), ("gray_step launches", launches))
+    check(k2_walks == {"warpgroups": 1}, ("gray_step's K2 walks", k2_walks))
 
     def plain_k1(coeffs, quant, precision):
         blocks = decode_stage.dequantize_idct_shift(coeffs, quant, n, 1 << (precision - 1),

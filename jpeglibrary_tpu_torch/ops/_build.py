@@ -59,6 +59,7 @@ _K2_ARGS = [
     ctypes.c_int,                      # level_shift
     ctypes.c_void_p,                   # cudaStream_t
 ]
+_K2_WALK_ARGS = [ctypes.c_int] * 4  # sample bytes, hs, vs, level_shift
 _K3_SHAPE_ARGS = [
     ctypes.c_void_p, ctypes.c_int64,   # segments, row width
     ctypes.c_int64, ctypes.c_int64,    # n_rows, n_sub
@@ -118,6 +119,7 @@ _ENTRY_POINTS = {
     "jpx_fdct_quant_i32": _K2_ARGS,
     "jpx_fdct_quant_u16": _K2_ARGS,
     "jpx_fdct_quant_u8": _K2_ARGS,
+    "jpx_fdct_quant_walk": _K2_WALK_ARGS,
     "jpx_huffman_sync": _K3_SYNC_ARGS,
     "jpx_huffman_write": _K3_WRITE_ARGS,
     "jpx_butterfly_idct_i16": _K4_ARGS,

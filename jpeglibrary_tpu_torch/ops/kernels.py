@@ -124,9 +124,10 @@ def transform_matrix(device: torch.device, n: int = 8) -> torch.Tensor:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, box=None, **last) -> None:
+def count_launch(wrapper, box=None, walk=None, **last) -> None:
     """One launch on ``wrapper.launches`` and, with ``box``, on
-    ``wrapper.launches_by_box[box]``; ``last`` sets attributes that
+    ``wrapper.launches_by_box[box]``, with ``walk`` on
+    ``wrapper.launches_by_walk[walk]``; ``last`` sets attributes that
     describe the launch (K3's ``rounds``). Under one lock: the stream's
     device workers launch from several threads, and ``+=`` on an
     attribute can lose a count between them."""
@@ -134,6 +135,8 @@ def count_launch(wrapper, box=None, **last) -> None:
         wrapper.launches += 1
         if box is not None:
             wrapper.launches_by_box[box] = wrapper.launches_by_box.get(box, 0) + 1
+        if walk is not None:
+            wrapper.launches_by_walk[walk] = wrapper.launches_by_walk.get(walk, 0) + 1
         for name, value in last.items():
             setattr(wrapper, name, value)
 
@@ -156,18 +159,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(label: str, wrapper, entry: str, device: torch.device, *args, box=None,
-            **last) -> None:
+            walk=None, **last) -> None:
     """One call of the library's C entry ``entry`` with ``args`` and the
     current stream of ``device``, under that device's guard. Raises
     RuntimeError on a non-zero return code, else counts the launch on
-    ``wrapper`` (``box`` and ``last`` as :func:`count_launch` takes
-    them)."""
+    ``wrapper`` (``box``, ``walk`` and ``last`` as :func:`count_launch`
+    takes them)."""
     fn = getattr(_build.load_library(), entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{label} launch failed: CUDA error {err}")
-    count_launch(wrapper, box=box, **last)
+    count_launch(wrapper, box=box, walk=walk, **last)
 
 
 def dequantize_idct_shift(coeffs_zz: torch.Tensor, quants_zz: torch.Tensor,
@@ -342,8 +345,10 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
     -> ``subsample_box`` -> ``fdct_quantize``; on a CUDA plane it launches
     ``csrc/fdct_quant.cu``, which fuses the pad and the box into its load,
     or raises. ``fdct_quantize.launches`` counts the kernel's launches,
-    and ``fdct_quantize.launches_by_box`` the same launches by (sample
-    dtype, hs, vs), one instantiation of the kernel each."""
+    ``fdct_quantize.launches_by_box`` the same launches by (sample dtype,
+    hs, vs), one instantiation of the kernel each, and
+    ``fdct_quantize.launches_by_walk`` by the walk the launch took
+    (:func:`fdct_walk`)."""
     if plane.dtype not in (torch.int32, torch.uint16, torch.uint8):
         raise TypeError(f"samples must be int32, uint16 or uint8, got {plane.dtype}")
     if plane.dim() != 2:
@@ -385,12 +390,30 @@ def fdct_quantize(plane: torch.Tensor, quant_zz: torch.Tensor, level_shift: int,
              torch.uint8: "jpx_fdct_quant_u8"}[plane.dtype]
     _launch("K2", fdct_quantize, entry, device,
             plane.data_ptr(), quant_zz.data_ptr(), split.data_ptr(), out.data_ptr(),
-            h, w, hb, wb, hs, vs, int(level_shift), box=(plane.dtype, hs, vs))
+            h, w, hb, wb, hs, vs, int(level_shift), box=(plane.dtype, hs, vs),
+            walk=fdct_walk(plane.element_size(), hs, vs, int(level_shift)))
     return out
 
 
 fdct_quantize.launches = 0
 fdct_quantize.launches_by_box = {}
+fdct_quantize.launches_by_walk = {}
+
+
+@functools.lru_cache(maxsize=64)
+def fdct_walk(sample_bytes: int, hs: int, vs: int, level_shift: int) -> str:
+    """The walk K2's kernel takes for samples of ``sample_bytes`` bytes at
+    the (hs, vs) box and ``level_shift``, as the library decides it at
+    compile time from the strip's size: ``"warpgroups"``, where each
+    warpgroup walks its own strips and multiplies them with wgmma, or
+    ``"rounds"``, the CTA walk of lock-step rounds that keeps the strips too
+    large for the warpgroups' rings (and 8-bit samples at a level shift past
+    256, which need a second A pass)."""
+    code = _build.load_library().jpx_fdct_quant_walk(sample_bytes, hs, vs, level_shift)
+    if code not in (0, 1):
+        raise ValueError(f"K2 takes no {sample_bytes}-byte samples at ({hs}, {vs})")
+    return "warpgroups" if code == 1 else "rounds"
+
 
 SCAN_MAX_COMPS = 4  # components in one scan (T.81 B.2.3)
 SCAN_MAX_BPM = 10  # blocks in one MCU (T.81 B.2.3)

@@ -349,9 +349,9 @@ def test_k3_bound(smoke, buf_bytes, out_bytes, symbols, want_us):
 def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     """The device-scan and full-step phases run end to end on the CPU at a
     small size with the timers stubbed: every check holds but the launch
-    counts and K5's in-place walk, which only the card can meet (the CPU
-    takes the plain versions, and K5's copies the step's planes into walk
-    order: three 6-D permutes and the chroma cat)."""
+    counts (K2's by walk among them) and K5's in-place walk, which only the
+    card can meet (the CPU takes the plain versions, and K5's copies the
+    step's planes into walk order: three 6-D permutes and the chroma cat)."""
     failed = []
     monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
     monkeypatch.setattr(smoke, "SIZE", 32)
@@ -392,15 +392,17 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     assert all(f[1] >= 2 and f[2] == 0 for f in failed[4:6])  # (model rounds, K3 rounds)
     assert k6_launches == 0
     assert failed[6] == ("full_step launches", 0, 0, 0, 0)
-    assert failed[7][0] == "full_step copies its blocks for the statistics"
-    assert [op for op, _ in failed[7][1]] == ["permute"] * 3 + ["cat"]
-    assert len(failed) == 8
+    assert failed[7] == ("full_step's K2 walks", {})
+    assert failed[8][0] == "full_step copies its blocks for the statistics"
+    assert [op for op, _ in failed[8][1]] == ["permute"] * 3 + ["cat"]
+    assert len(failed) == 9
 
 
 def test_gray_step_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     """The gray-step phase runs end to end on the CPU at small shapes with
-    the timers stubbed: every check holds but the launch count, which only
-    the card meets (the CPU takes the plain versions)."""
+    the timers stubbed: every check holds but the launch counts (K2's by
+    walk among them), which only the card meets (the CPU takes the plain
+    versions)."""
     failed = []
     monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
     monkeypatch.setattr(smoke, "GRAY_SHAPES", ((4, 3, 5), (3, 5, 7), (2, 2, 3)))
@@ -409,7 +411,7 @@ def test_gray_step_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     stub = lambda *fns, **kw: [0.5 for fn in fns if fn() is not None]
     monkeypatch.setattr(smoke, "device_ms", stub)
     records = smoke.phase_gray_step(torch.device("cpu"))
-    assert failed == [("gray_step launches", (0, 0, 0))]
+    assert failed == [("gray_step launches", (0, 0, 0)), ("gray_step's K2 walks", {})]
     assert [r["name"] for r in records] == ["dequantize_idct_plane[gray_step]",
                                             "fdct_quantize[gray_step, uint16]",
                                             "symbol_histograms[gray_step]"]

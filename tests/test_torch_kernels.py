@@ -12,7 +12,11 @@ The tests marked ``cuda`` need the card and skip without one: K1's
 outputs, both W = 64 stores and both coefficient types, equal the SHA-256
 digests recorded on an H100 from the kernel whose product loop ran 8
 blocks by 4 columns a thread (before the W = 64 loop was redesigned), so
-the loop's arithmetic is held bit for bit. Where JAX is not installed the
+the loop's arithmetic is held bit for bit; K2's outputs (every sample
+type, the cells' boxes and sizes, ragged edges, each load width, two quant
+tables) equal the digests recorded from the kernel that ran its strips in
+lock-step rounds of 4-warp CTAs (before the warpgroup walk), and the cells'
+instantiations take the warpgroup walk. Where JAX is not installed the
 JAX package is not imported either, and the CPU tests that compare with it
 cannot run; the card tests run without this directory's conftest:
 
@@ -23,6 +27,7 @@ import hashlib
 import os
 import subprocess
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -309,3 +314,187 @@ def card():
 @pytest.mark.parametrize("case", sorted(DIGEST_CASES))
 def test_card_k1_outputs_equal_recorded_digests(card, case):
     assert k1_digest(case, card) == K1_DIGESTS[case], case
+
+
+# --- K2 on the card ----------------------------------------------------------
+
+def _k2_digest_cases():
+    """Case name -> (sample dtype, hs, vs, height, width, extra block rows
+    and columns past the least grid, level shift, max sample, offset of the
+    plane's first sample in its buffer, in samples). They cover the cells'
+    three instantiations at the cells' sizes (uint8 1x1 and 2x2, uint16 1x1
+    at level shift 2048) and small; int32 at 3x1 and 4x4; ragged right and
+    bottom edges; pitches and base offsets that take the 16-, 4- and 1-byte
+    loads; launches of fewer strips than the grid and of many a CTA."""
+    cases = {}
+    u8 = (128, 255)
+    for hs, vs in ((1, 1), (2, 2)):
+        box = f"{hs}x{vs}"
+        cases[f"u8-{box}-cell-16384x4096"] = ("uint8", hs, vs, 16384, 4096, (0, 0), *u8, 0)
+        cases[f"u8-{box}-2048x2048"] = ("uint8", hs, vs, 2048, 2048, (0, 0), *u8, 0)
+        cases[f"u8-{box}-pitch16-ragged-1000x4112"] = ("uint8", hs, vs, 1000, 4112, (0, 0), *u8, 0)
+        cases[f"u8-{box}-pitch4-ragged-600x516"] = ("uint8", hs, vs, 600, 516, (0, 0), *u8, 0)
+        cases[f"u8-{box}-pitch1-ragged-1001x777"] = ("uint8", hs, vs, 1001, 777, (0, 0), *u8, 0)
+        cases[f"u8-{box}-offset4-256x1024"] = ("uint8", hs, vs, 256, 1024, (0, 0), *u8, 4)
+        cases[f"u8-{box}-offset1-256x1024"] = ("uint8", hs, vs, 256, 1024, (0, 0), *u8, 1)
+        cases[f"u8-{box}-grid-past-plane-100x200"] = ("uint8", hs, vs, 100, 200, (2, 3), *u8, 0)
+        cases[f"u8-{box}-tiny-{8 * vs}x{24 * hs}"] = ("uint8", hs, vs, 8 * vs, 24 * hs, (0, 0),
+                                                      *u8, 0)
+    u16 = (2048, 4095)
+    cases["u16-1x1-cell-262144x512"] = ("uint16", 1, 1, 262144, 512, (0, 0), *u16, 0)
+    cases["u16-1x1-512x512"] = ("uint16", 1, 1, 512, 512, (0, 0), *u16, 0)
+    cases["u16-1x1-pitch4-ragged-509x514"] = ("uint16", 1, 1, 509, 514, (0, 0), *u16, 0)
+    cases["u16-1x1-pitch1-ragged-515x515"] = ("uint16", 1, 1, 515, 515, (0, 0), *u16, 0)
+    cases["u16-1x1-offset1-64x512"] = ("uint16", 1, 1, 64, 512, (0, 0), *u16, 1)
+    cases["u16-1x1-tiny-8x8"] = ("uint16", 1, 1, 8, 8, (0, 0), *u16, 0)
+    for hs, vs in ((3, 1), (4, 4)):
+        box = f"{hs}x{vs}"
+        for ls, top in ((128, 255), (2048, 4095)):
+            cases[f"i32-{box}-ls{ls}-1024x1536"] = ("int32", hs, vs, 1024, 1536, (0, 0), ls, top, 0)
+            cases[f"i32-{box}-ls{ls}-pitch4-ragged-333x1001"] = ("int32", hs, vs, 333, 1001, (0, 0),
+                                                                 ls, top, 0)
+        cases[f"i32-{box}-ls128-offset1-64x512"] = ("int32", hs, vs, 64, 512, (1, 1), 128, 255, 1)
+    return cases
+
+
+K2_DIGEST_CASES = _k2_digest_cases()
+
+# SHA-256 of each case's two int16 outputs (small quant steps, then large),
+# recorded on an NVIDIA H100 80GB HBM3 from the kernel that ran its strips in
+# lock-step rounds of 4-warp CTAs (before the pipelined schedule).
+K2_DIGESTS = {
+    "i32-3x1-ls128-1024x1536":
+        "9be1f111bf24cd1d44e916a6de6ae01d723ae3f22237ae791c469314bb433c90",
+    "i32-3x1-ls128-offset1-64x512":
+        "eb6edf2e41eb2ab8228cd2ffd677535638f331fcab347bf0503fd496edfb7ca9",
+    "i32-3x1-ls128-pitch4-ragged-333x1001":
+        "4d1c012df6d7c9318b37f1110c4226d0a68c1086617599347db32b22458740bc",
+    "i32-3x1-ls2048-1024x1536":
+        "403d761853d216170b22a03588ccae66bda906fb3dd0ccf9ab585b2d2a3602ac",
+    "i32-3x1-ls2048-pitch4-ragged-333x1001":
+        "542897d696d6ff1129f602b653704a4d1454ab1b65530662bbf7bcf2be8de981",
+    "i32-4x4-ls128-1024x1536":
+        "b7d15f85b1f3ae9fb58e1cdf7c86df40df31884d6b965c4688f3eb8b123d0ca4",
+    "i32-4x4-ls128-offset1-64x512":
+        "5cae65f3347ba45811f10697d8a2f3b1f258b79c34a813541ad43c866e532a03",
+    "i32-4x4-ls128-pitch4-ragged-333x1001":
+        "21c1d834fc55bcada141412422b8a527988aa3401b867a681d7922ea7823538e",
+    "i32-4x4-ls2048-1024x1536":
+        "4aeb3a8981ce6cd2b75f7b0d49f2c922e241a31a012623cb50815c63567b21d7",
+    "i32-4x4-ls2048-pitch4-ragged-333x1001":
+        "cd5f89e5f9a62c58880f925400e7bf7cc22fa7938ea3bfd08296e9464f875a73",
+    "u16-1x1-512x512":
+        "8fa5a035bb6b25b31570edb63dfa77b469107032209251d4309be947babc5322",
+    "u16-1x1-cell-262144x512":
+        "429a1f1981b508b9e3e35369a7cce9ff1c09cdfaf3d09a64ef0d25e9dc847e2b",
+    "u16-1x1-offset1-64x512":
+        "9a52ce5bf47aa99ba8757455ffa73c1eca37692397f792ac3034608220b7ebd4",
+    "u16-1x1-pitch1-ragged-515x515":
+        "38b018256bc3c37f2859b62eaaf7cc90d1c10052e59efb346e1d535f9a635009",
+    "u16-1x1-pitch4-ragged-509x514":
+        "df2ee8d9aa91c1d055d7f513df7bc398f66df6a6da7a76e6243b98972e587290",
+    "u16-1x1-tiny-8x8":
+        "bc320810f4723eb02e615538929253e0270ab09a98a67461f752b0e134e3122c",
+    "u8-1x1-2048x2048":
+        "a06d6b19ee5bf3e29dd366d97bb18630465cc25799040a0080f6800a32b6a3b2",
+    "u8-1x1-cell-16384x4096":
+        "7ddd682308a39348ccb298fa58e5b5345597eb5915cb927a6b358d194f19046f",
+    "u8-1x1-grid-past-plane-100x200":
+        "0e3052286c91994bd74c5bf7e9911420fe813cda089db7bdf5cc4728a8713b18",
+    "u8-1x1-offset1-256x1024":
+        "2328e65327dc70a5b0f8636400601f81a7d7d07ff1ffc9197798e311e0b71365",
+    "u8-1x1-offset4-256x1024":
+        "ba1a8a38c22e80d41a9ec62838f47c3707a34a2e8de7b322f71a90d8f791e044",
+    "u8-1x1-pitch1-ragged-1001x777":
+        "ae28bfb78ce22e214b58fad0a08c30126e91d8af03388c34ea9f3249e426afae",
+    "u8-1x1-pitch16-ragged-1000x4112":
+        "ccf204fbe7c1433f6c150389e608952a1279259295206661d78abad57085c791",
+    "u8-1x1-pitch4-ragged-600x516":
+        "0b8530242873453b00727c47bbf81843f62fa1e0efa46fa9c949c939b7a0e4c5",
+    "u8-1x1-tiny-8x24":
+        "80499022886a6e2cef8eb348b07dc2d3fd2a3c6adeb1cd22ce3c551b412692ca",
+    "u8-2x2-2048x2048":
+        "665508a8dcb27b21f881c22a88a5f2aef57c05cc5eba0c81090726a4e8ab7372",
+    "u8-2x2-cell-16384x4096":
+        "8d75d39c13b99d0fff2d639c17cf8b00b07c60a7a6143ac947febdd5c58e3c86",
+    "u8-2x2-grid-past-plane-100x200":
+        "8235d47b70ab1380ac039f08885ed9ce422b0dd12b7bc99d834ae8c2bb3620b0",
+    "u8-2x2-offset1-256x1024":
+        "be95d9eba656fdb79602408da82636274dafa3b68bee8b1122eddbdafda6d361",
+    "u8-2x2-offset4-256x1024":
+        "c107eac73263e18fd06463a1bceb9c7068024c4554dd8b70eb816f0c8c8356c2",
+    "u8-2x2-pitch1-ragged-1001x777":
+        "f9a7788037b08d30df0fac8302d4cf7aa4b12e94456bd17ce2fbd7fdcf0ac820",
+    "u8-2x2-pitch16-ragged-1000x4112":
+        "0286d272ee8b2c63eba77b5378628a6e5fa8da7a4cbe5be87f2e6697fef4e74c",
+    "u8-2x2-pitch4-ragged-600x516":
+        "0e1fa053e916318da1e1d7a2a5073fe5beb1484bb7a2a47eef7e42ac1fa92982",
+    "u8-2x2-tiny-16x48":
+        "77991ddeaf6ab361763fd5e4d8762220d286f0811920429dd6415af1ba3774f1",
+}
+
+
+def _k2_digest_inputs(case):
+    """The case's samples (numpy, seeded by its name): uniform noise over
+    the whole range, with 32 x 32 tiles overwritten by flat values (exact
+    .5 ties in the DC), by 0 or by the largest sample; and its two quant
+    tables, steps of 1 to 3 and of 64 to 255."""
+    dtype, hs, vs, h, w, extra, ls, top, offset = K2_DIGEST_CASES[case]
+    rng = np.random.default_rng([DIGEST_SEED, zlib.crc32(case.encode())])
+    plane = rng.integers(0, top + 1, size=(h, w), dtype=np.int64)
+    th, tw = -(-h // 32), -(-w // 32)
+    kind = rng.integers(0, 8, size=(th, tw))
+    flat = rng.integers(0, top + 1, size=(th, tw))
+    tile = np.select([kind == 1, kind == 2, kind == 3], [flat, 0, top], -1)
+    over = np.kron(tile, np.ones((32, 32), np.int64))[:h, :w]
+    plane = np.where(over >= 0, over, plane).astype(dtype)
+    small = rng.integers(1, 4, size=64).astype(np.int32)
+    large = rng.integers(64, 256, size=64).astype(np.int32)
+    return plane, (small, large)
+
+
+def k2_digest(case, device) -> str:
+    """SHA-256 of K2's outputs for ``case`` on ``device``: one launch per
+    quant table, the plane placed ``offset`` samples into its buffer."""
+    dtype, hs, vs, h, w, extra, ls, top, offset = K2_DIGEST_CASES[case]
+    plane, quants = _k2_digest_inputs(case)
+    buf = np.zeros(h * w + offset, dtype)
+    buf[offset:] = plane.reshape(-1)
+    samples = torch.from_numpy(buf).to(device)[offset:].view(h, w)
+    blocks = (-(-h // (8 * vs)) + extra[0], -(-w // (8 * hs)) + extra[1])
+    digest = hashlib.sha256()
+    for quant in quants:
+        out = kernels.fdct_quantize(samples, torch.from_numpy(quant).to(device), ls, hs=hs, vs=vs,
+                                    blocks=blocks)
+        digest.update(out.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K2_DIGEST_CASES))
+def test_card_k2_outputs_equal_recorded_digests(card, case):
+    assert k2_digest(case, card) == K2_DIGESTS[case], case
+
+
+def test_k2_entries_match_their_ctypes_signatures():
+    """Every C entry of csrc/fdct_quant.cu takes as many arguments as
+    ``_build`` declares for it, the walk query among them."""
+    import re
+
+    text = (_build._CSRC / "fdct_quant.cu").read_text()
+    for name in ("jpx_fdct_quant_u8", "jpx_fdct_quant_u16", "jpx_fdct_quant_i32",
+                 "jpx_fdct_quant_walk"):
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        assert m and m.group(1).count(",") + 1 == len(_build._ENTRY_POINTS[name]), name
+
+
+@pytest.mark.cuda
+def test_card_k2_walks(card):
+    """The cells' three instantiations take the warpgroup walk; int32 at 4x4,
+    whose strip is 128 KB, and 8-bit samples past level shift 256 take the
+    CTA walk; a box K2 does not take is refused."""
+    walk = kernels.fdct_walk
+    assert [walk(1, 1, 1, 128), walk(1, 2, 2, 128), walk(2, 1, 1, 2048)] == ["warpgroups"] * 3
+    assert [walk(4, 4, 4, 128), walk(1, 1, 1, 2048)] == ["rounds"] * 2
+    with pytest.raises(ValueError):
+        walk(2, 2, 2, 2048)

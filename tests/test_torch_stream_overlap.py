@@ -191,12 +191,12 @@ def test_launch_counts_lose_nothing_across_threads():
     def wrapper():
         pass
 
-    wrapper.launches, wrapper.launches_by_box = 0, {}
+    wrapper.launches, wrapper.launches_by_box, wrapper.launches_by_walk = 0, {}, {}
     n, box = 4000, (torch.uint8, 2, 2)
 
     def count():
         for i in range(n):
-            kernels.count_launch(wrapper, box=box, rounds=i)
+            kernels.count_launch(wrapper, box=box, walk="warpgroups", rounds=i)
 
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -210,4 +210,5 @@ def test_launch_counts_lose_nothing_across_threads():
         sys.setswitchinterval(switch)
     assert not any(t.is_alive() for t in threads)
     assert wrapper.launches == 8 * n and wrapper.launches_by_box == {box: 8 * n}
+    assert wrapper.launches_by_walk == {"warpgroups": 8 * n}
     assert wrapper.rounds == n - 1
