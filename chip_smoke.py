@@ -140,18 +140,26 @@ layer in spawned ranks. In order:
    against their plain version in CUDA events, warm and L2-flushed, the
    count of K5 records the profiler keeps of 5 launches, and
    ``tools/k5_probe.py``'s parts of K5 on the step's planes (``k5_parts``).
+   Then ``full_step`` on a 4:2:2 batch (the same luma, each chroma block
+   row twice: chroma [8, 256, 128, 64]): 3 K1, 1 K6 (its (2, 1)
+   instantiation), 3 K2 (the chroma at the 2x1 box, all on the warpgroup
+   walk) and 2 K5 launches, counted from 0 just before the step, its
+   outputs against the plain step as above and its histograms against the
+   host gather with the luma in (2, 1) MCU order.
    ``--phase full_step`` runs this phase alone after the build;
 15b. colour round trip: K6 (``kernels.color_round_trip``,
    ``csrc/color_round_trip.cu``) against its plain version
-   (``color.round_trip_420_plain``) on K1-range int32 samples (-300 to
-   400, and the int32 extremes) at both benchmark cells' shapes (4 images
-   of 512 x 512 luma blocks, 256 of 48 x 64) and two ragged ones (MCU
-   rows of 33 and 13 MCUs), 0 bytes differing in the RGB and the three
-   planes; K6 timed in CUDA events with the L2 flushed and warm against
-   its 12 B a pixel bound, beside the plain chain; its record carries
-   the K6 launches of phase 15's ``full_step``.
+   (``color.round_trip_plain``) on K1-range int32 samples (-300 to
+   400, and the int32 extremes) at every benchmark colour cell's shape
+   (4:2:0: 4 images of 512 x 512 luma blocks, 256 of 48 x 64; 4:2:2: 4
+   of 500 x 750) and two ragged ones of each sampling (MCU rows of 33
+   and 13 MCUs), 0 bytes differing in the RGB and the three planes, each
+   launch counted under its (hs, vs); K6 timed in CUDA events with the L2
+   flushed and warm against its bound (12 B a luma pixel at 4:2:0, 14 B
+   at 4:2:2), beside the plain chain; its two records (4:2:0 and 4:2:2,
+   at the cells' shapes) carry the K6 launches of phase 15's steps.
    ``--phase color_round_trip`` runs this phase alone after the build
-   (its record's launches then None);
+   (its records' launches then None);
 15c. gray step: ``gray_step`` (the re-encoding step of one-component
    12-bit frames) and its two new kernel paths: K1's uint16 plane store
    (``kernels.dequantize_idct_plane``) equal to K1's int32 blocks through
@@ -203,7 +211,7 @@ exits non-zero. The line before the last is a JSON record of the
 kernels (K1, one entry per K1 variant, K2, one entry per K2 box of 9,
 K3 at each restart interval and on the small ri 0 stream, the K1 and K2
 calls of ``full_step``, K4, K5 on ``full_step``'s luma, and K6 at the
-16.8 MP cell's shape, K1's plane store, K2's uint16 load and K5 of
+16.8 MP cell's shape and at the 24 MP 4:2:2 cell's, K1's plane store, K2's uint16 load and K5 of
 ``gray_step`` at the CT cell's: launches on the main paths, kernel
 time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -244,13 +252,17 @@ K5_SOURCE = "jpeglibrary_tpu_torch/csrc/symbol_hist.cu"
 K5_REPLACES = "jpeglibrary_tpu/ops/encode_stage.py:330"  # symbol_histograms_device: XLA, not Pallas
 K6_SOURCE = "jpeglibrary_tpu_torch/csrc/color_round_trip.cu"
 K6_REPLACES = "jpeglibrary_tpu/parallel/sharding.py:70"  # full_step's colour ops: XLA, no kernel
-# K6's shapes (batch, luma block rows, luma block columns): the benchmark's
-# two cells, and MCU rows of 33 and 13 MCUs, whose last strip is ragged.
-K6_SHAPES = ((4, 512, 512), (256, 48, 64), (3, 6, 66), (2, 10, 26))
+# K6's shapes (batch, luma block rows, luma block columns, the chroma's vs):
+# at 4:2:0 the benchmark's two 4:2:0 cells, and MCU rows of 33 and 13 MCUs,
+# whose last strip is ragged; at 4:2:2 the 24 MP cell's (MCU rows of 375
+# MCUs, ragged), and 5 and 9 MCU rows of 33 and 13 MCUs.
+K6_SHAPES = ((4, 512, 512, 2), (256, 48, 64, 2), (3, 6, 66, 2), (2, 10, 26, 2),
+             (4, 500, 750, 1), (3, 5, 66, 1), (2, 9, 26, 1))
 # K6's integer operations a luma pixel as ops/color.py writes them (a clamp
 # is two): the luma clamp, three adds with clamps, three products, two adds
-# and a shift for each of y, cb and cr; and a 2x2 cell's: two clamps, the
-# two -128s, and 3 + 3 + 5 for cr_r, cb_b and g_off.
+# and a shift for each of y, cb and cr; and a chroma cell's (2x2 at 4:2:0,
+# 2x1 at 4:2:2): two clamps, the two -128s, and 3 + 3 + 5 for cr_r, cb_b
+# and g_off.
 K6_OPS_PER_PIXEL = 2 + 3 * 3 + 3 * 7
 K6_OPS_PER_CELL = 2 * 2 + 2 + 3 + 3 + 5
 # K4's float operations per block: 16 one-dimensional passes of 12
@@ -436,6 +448,7 @@ def reset_counts():
     kernels.butterfly_idct_shift.launches = 0
     kernels.symbol_histograms.launches = 0
     kernels.color_round_trip.launches = 0
+    kernels.color_round_trip.launches_by_box.clear()
     kernels.dequantize_idct_plane.launches = 0
 
 
@@ -1937,6 +1950,57 @@ def k5_parts(step_k5, flush):
                              modes=("L2 flushed",))
 
 
+def plain_step_kernels(dev):
+    """K1's and K2's plain versions on ``dev``, in the forms ``_step`` calls
+    them as ``k1`` and ``k2``."""
+    from jpeglibrary_tpu_torch.ops import decode_stage, kernels
+
+    idct = kernels.transform_matrix(dev)
+    fdct = kernels.fdct_matrix(dev)
+
+    def k1_plain(c, q, ls):
+        return decode_stage.dequantize_idct_shift(
+            c.reshape(-1, 64), q, c.numel() // 64, ls, idct).reshape(c.shape[:-1] + (8, 8))
+
+    def k2_plain_call(plane, q, ls, *, hs=1, vs=1, blocks=None):
+        return k2_plain(plane, q, ls, hs, vs, fdct)
+
+    return k1_plain, k2_plain_call
+
+
+def check_requants(label, requants, plain_requants):
+    """The step's requantised Y, Cb and Cr against the plain step's: within
+    1 on <= 1e-3 of the values."""
+    for name, got_q, want_q in zip(("Y", "Cb", "Cr"), requants, plain_requants):
+        check(got_q.shape == want_q.shape and got_q.dtype == torch.int16, (name, got_q.shape))
+        d = (got_q.to(torch.int32) - want_q.to(torch.int32)).abs()
+        n_diff = int((d > 0).sum())
+        log(f"{label}: requantised {name} {tuple(got_q.shape)} vs plain: max |diff| "
+            f"{int(d.max())}, {n_diff}/{d.numel()} differ")
+        check(int(d.max()) <= 1 and n_diff <= d.numel() * 1e-3,
+              ("requant", label, name, int(d.max()), n_diff))
+
+
+def host_histograms(requants, mcu):
+    """The step's four histograms gathered on the host from its requantised
+    blocks: the luma in ``mcu`` (h, v) MCU order, each chroma image a raster
+    chain."""
+    from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
+
+    want = np.zeros((4, 256), np.int64)
+    for img in requants[0].cpu().numpy():
+        dc, ac = host_encode_stage.dc_ac_symbol_frequencies(
+            host_encode_stage.mcu_order_blocks(img, *mcu))
+        want[0] += dc
+        want[1] += ac
+    for plane in requants[1:]:
+        for img in plane.cpu().numpy():
+            dc, ac = host_encode_stage.dc_ac_symbol_frequencies(img.reshape(-1, 64))
+            want[2] += dc
+            want[3] += ac
+    return want
+
+
 def phase_full_step(inputs, dev):
     """``full_step`` on the slice's images' coefficient planes at full width
     (Y [8, 256, 256, 64] int16, chroma [8, 128, 128, 64]): K1 and K2 launched
@@ -1948,8 +2012,7 @@ def phase_full_step(inputs, dev):
     statistics inputs and on :func:`k5_edge_cases`. Then the step's time,
     its kernels, and records for its K1 and K2 calls on the luma and its
     K5 call on the luma, returned with the step's K6 launches."""
-    from jpeglibrary_tpu_torch.host.ops import encode_stage as host_encode_stage
-    from jpeglibrary_tpu_torch.ops import color, decode_stage, encode_stage, kernels
+    from jpeglibrary_tpu_torch.ops import color, encode_stage, kernels
     from jpeglibrary_tpu_torch.parallel import full_step, sharding
 
     (y, cb, cr), (q_luma, q_chroma) = inputs
@@ -1975,13 +2038,7 @@ def phase_full_step(inputs, dev):
 
     idct = kernels.transform_matrix(dev)
     fdct = kernels.fdct_matrix(dev)
-
-    def k1_plain(c, q, ls):
-        return decode_stage.dequantize_idct_shift(
-            c.reshape(-1, 64), q, c.numel() // 64, ls, idct).reshape(c.shape[:-1] + (8, 8))
-
-    def k2_plain_call(plane, q, ls, *, hs=1, vs=1, blocks=None):
-        return k2_plain(plane, q, ls, hs, vs, fdct)
+    k1_plain, k2_plain_call = plain_step_kernels(dev)
 
     # full_step hands back the requantised luma alone, as the JAX step does:
     # the step runs once more through _step with the same kernels for its
@@ -1992,16 +2049,9 @@ def phase_full_step(inputs, dev):
           and torch.equal(hists_, hists), "_step's outputs differ from full_step's")
     plain_rgb, plain_requants, plain_hists = sharding._step(
         *args, k1_plain, k2_plain_call, k5=encode_stage.symbol_histograms_plain,
-        k6=color.round_trip_420_plain)
+        k6=color.round_trip_plain)
     check_close(rgb.cpu().numpy(), plain_rgb.cpu().numpy(), "full step: RGB vs plain")
-    for name, got_q, want_q in zip(("Y", "Cb", "Cr"), requants, plain_requants):
-        check(got_q.shape == want_q.shape and got_q.dtype == torch.int16, (name, got_q.shape))
-        d = (got_q.to(torch.int32) - want_q.to(torch.int32)).abs()
-        n_diff = int((d > 0).sum())
-        log(f"full step: requantised {name} {tuple(got_q.shape)} vs plain: max |diff| "
-            f"{int(d.max())}, {n_diff}/{d.numel()} differ")
-        check(int(d.max()) <= 1 and n_diff <= d.numel() * 1e-3,
-              ("requant", name, int(d.max()), n_diff))
+    check_requants("full step", requants, plain_requants)
     # The step's chroma K2 calls, 2x2 boxes of [B*H, W] planes with block rows
     # from every image, against their plain version on the same planes.
     _, cb2, cr2 = color.rgb_to_ycbcr(rgb[..., 0], rgb[..., 1], rgb[..., 2])
@@ -2009,17 +2059,7 @@ def phase_full_step(inputs, dev):
         k2_check(f"full step {name} stacked", plane.reshape(b * SIZE, SIZE), args[4], 128, 2, 2,
                  fdct)
 
-    want = np.zeros((4, 256), np.int64)
-    for img in requants[0].cpu().numpy():
-        dc, ac = host_encode_stage.dc_ac_symbol_frequencies(
-            host_encode_stage.mcu_order_blocks(img, 2, 2))
-        want[0] += dc
-        want[1] += ac
-    for plane in requants[1:]:
-        for img in plane.cpu().numpy():
-            dc, ac = host_encode_stage.dc_ac_symbol_frequencies(img.reshape(-1, 64))
-            want[2] += dc
-            want[3] += ac
+    want = host_histograms(requants, (2, 2))
     check(np.array_equal(hists.cpu().numpy(), want), "full_step's histograms differ from the "
           "host gather of its requantised blocks")
     same = all(torch.equal(g, w) for g, w in zip(requants, plain_requants))
@@ -2168,20 +2208,86 @@ def phase_full_step(inputs, dev):
     return records, k6_launches
 
 
-def k6_bound(n_pixels):
-    """K6's bound: per luma pixel its int32 luma sample and a quarter of
-    its two int32 chroma samples in, 3 B of RGB and 3 B of planes out
-    (12 B); the integer operations of ``ops/color.py``'s formulas."""
-    return bound(12 * n_pixels, 0, n_pixels * K6_OPS_PER_PIXEL + n_pixels // 4 * K6_OPS_PER_CELL)
+def inputs_422(inputs):
+    """4:2:2 inputs of ``full_step`` from 4:2:0 ones: the luma and the
+    tables as they are, each chroma block row twice ([B, Hb, Wb/2, 64]),
+    the chroma of a 4:2:2 frame whose every pair of chroma rows repeats."""
+    (y, cb, cr), tables = inputs
+    return (y, np.repeat(cb, 2, axis=1), np.repeat(cr, 2, axis=1)), tables
 
 
-def k6_samples(b, hb, wb, dev, seed):
-    """K1-range int32 samples of a batch of 4:2:0 images, luma [b, hb, wb,
-    8, 8] and two chroma [b, hb/2, wb/2, 8, 8]: uniform in [-300, 400], with
-    the int32 extremes and the clamp's edges planted in each."""
+def phase_full_step_422(inputs, dev):
+    """``full_step`` on a 4:2:2 batch (:func:`inputs_422` of the slice's
+    planes): 3 K1, 1 K6 (its (2, 1) instantiation), 3 K2 (the chroma's two
+    at the 2x1 box, all three on the warpgroup walk) and 2 K5 launches,
+    counted from 0 just before the step; RGB and the requantised Y, Cb and
+    Cr against the step with the plain versions, as phase 15 holds the
+    4:2:0 step; the four histograms equal to the host gather of the step's
+    own requantised blocks, the luma in (2, 1) MCU order. Returns the
+    step's K6 launches."""
+    from jpeglibrary_tpu_torch.ops import color, encode_stage, kernels
+    from jpeglibrary_tpu_torch.parallel import full_step, sharding
+
+    (y, cb, cr), (q_luma, q_chroma) = inputs_422(inputs)
+    args = [torch.from_numpy(a).to(dev) for a in (y, cb, cr, q_luma, q_chroma)]
+    reset_counts()
+    rgb, requant, hists = full_step(*args, device=dev)
+    torch.cuda.synchronize()
+    launches = (kernels.dequantize_idct_shift.launches, kernels.color_round_trip.launches,
+                kernels.fdct_quantize.launches, kernels.symbol_histograms.launches)
+    k6_box = dict(kernels.color_round_trip.launches_by_box)
+    k2_box = {(str(dtype)[6:], hs, vs): n for (dtype, hs, vs), n
+              in kernels.fdct_quantize.launches_by_box.items()}
+    k2_walks = dict(kernels.fdct_quantize.launches_by_walk)
+    log(f"full step 4:2:2: full_step over {y.shape[0]} images, Y {tuple(y.shape)} chroma "
+        f"{tuple(cb.shape)} int16: K1, K6, K2, K5 launches {launches}; K6 by box {k6_box}, "
+        f"K2 by box {k2_box}, K2 by walk {k2_walks}")
+    check(launches == (3, 1, 3, 2), ("full_step 4:2:2 launches", *launches))
+    check(k6_box == {(2, 1): 1}, ("full_step 4:2:2 K6 boxes", k6_box))
+    check(k2_box == {("uint8", 1, 1): 1, ("uint8", 2, 1): 2}, ("full_step 4:2:2 K2 boxes", k2_box))
+    check(k2_walks == {"warpgroups": 3}, ("full_step 4:2:2 K2 walks", k2_walks))
+    b, hb, wb = y.shape[:3]
+    check(tuple(rgb.shape) == (b, hb * 8, wb * 8, 3) and rgb.dtype == torch.uint8, rgb.shape)
+    check(requant.shape == args[0].shape and requant.dtype == torch.int16, requant.shape)
+
+    k1_plain, k2_plain_call = plain_step_kernels(dev)
+    rgb_, requants, hists_ = sharding._step(*args, kernels.dequantize_idct_shift,
+                                            kernels.fdct_quantize)
+    check(torch.equal(rgb_, rgb) and torch.equal(requants[0], requant)
+          and torch.equal(hists_, hists), "4:2:2 _step's outputs differ from full_step's")
+    plain_rgb, plain_requants, _ = sharding._step(
+        *args, k1_plain, k2_plain_call, k5=encode_stage.symbol_histograms_plain,
+        k6=color.round_trip_plain)
+    check_close(rgb.cpu().numpy(), plain_rgb.cpu().numpy(), "full step 4:2:2: RGB vs plain")
+    check_requants("full step 4:2:2", requants, plain_requants)
+    want = host_histograms(requants, (2, 1))
+    check(np.array_equal(hists.cpu().numpy(), want), "4:2:2 full_step's histograms differ "
+          "from the host gather of its requantised blocks in (2, 1) MCU order")
+    log(f"full step 4:2:2: the 4 histograms equal the host gather of the step's own "
+        f"requantised blocks, the luma in (2, 1) MCU order ({int(want[0].sum())} luma and "
+        f"{int(want[2].sum())} chroma DC symbols)")
+    return launches[1]
+
+
+def k6_bound(n_pixels, vs=2):
+    """K6's bound: per luma pixel its int32 luma sample and 1 / (2 vs) of
+    its two int32 chroma samples in, 3 B of RGB and 3 B of planes out (12
+    B at 4:2:0, 14 B at 4:2:2); the integer operations of
+    ``ops/color.py``'s formulas, a chroma cell of 2 vs pixels."""
+    n_bytes = (4 + 8 // (2 * vs) + 6) * n_pixels
+    return bound(n_bytes, 0, n_pixels * K6_OPS_PER_PIXEL
+                 + n_pixels // (2 * vs) * K6_OPS_PER_CELL)
+
+
+def k6_samples(b, hb, wb, dev, seed, vs=2):
+    """K1-range int32 samples of a batch of 4:2:0 (``vs`` 2) or 4:2:2
+    (``vs`` 1) images, luma [b, hb, wb, 8, 8] and two chroma [b, hb/vs,
+    wb/2, 8, 8]: uniform in [-300, 400], with the int32 extremes and the
+    clamp's edges planted in each."""
     g = torch.Generator(device=dev).manual_seed(seed)
     out = []
-    for shape in ((b, hb, wb, 8, 8), (b, hb // 2, wb // 2, 8, 8), (b, hb // 2, wb // 2, 8, 8)):
+    chroma = (b, hb // vs, wb // 2, 8, 8)
+    for shape in ((b, hb, wb, 8, 8), chroma, chroma):
         x = torch.randint(-300, 401, shape, generator=g, device=dev, dtype=torch.int32)
         flat = x.view(-1)
         edges = torch.tensor([-2**31, 2**31 - 1, -1, 0, 255, 256], dtype=torch.int32, device=dev)
@@ -2190,46 +2296,55 @@ def k6_samples(b, hb, wb, dev, seed):
     return out
 
 
-def phase_color_round_trip(dev, launches=None):
+def phase_color_round_trip(dev, launches=(None, None)):
     """K6 against its plain version at :data:`K6_SHAPES`, 0 bytes
-    differing; its time against its bound beside the plain chain's, in CUDA
-    events, with the L2 flushed and warm. Returns K6's record at the 16.8
-    MP cell's shape, with ``launches`` those of the full-step phase's
-    ``full_step`` (None when this phase runs alone)."""
+    differing, each launch counted under its sampling; its time against its
+    bound beside the plain chain's, in CUDA events, with the L2 flushed and
+    warm. Returns K6's records at the 16.8 MP cell's shape (4:2:0) and at
+    the 24 MP cell's (4:2:2), with ``launches`` those of the full-step
+    phase's 4:2:0 and 4:2:2 steps (None when this phase runs alone)."""
     from jpeglibrary_tpu_torch.ops import color, kernels
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    record = None
-    for i, (b, hb, wb) in enumerate(K6_SHAPES):
-        samples = k6_samples(b, hb, wb, dev, seed=60 + i)
+    records = {}
+    for i, (b, hb, wb, vs) in enumerate(K6_SHAPES):
+        samples = k6_samples(b, hb, wb, dev, seed=60 + i, vs=vs)
+        kernels.color_round_trip.launches_by_box.clear()
         got = kernels.color_round_trip(*samples)
-        want = color.round_trip_420_plain(*samples)
+        want = color.round_trip_plain(*samples)
         torch.cuda.synchronize()
+        by_box = dict(kernels.color_round_trip.launches_by_box)
         n_diff = sum(int((g != w).sum()) for g, w in zip(got, want))
         n_bytes = sum(w.numel() for w in want)
-        label = f"{b} x {hb} x {wb} luma blocks ({wb // 2} MCUs a row)"
-        log(f"K6 {label}: {n_diff}/{n_bytes} output bytes differ from the plain version")
+        sampling = "4:2:0" if vs == 2 else "4:2:2"
+        label = f"{sampling} {b} x {hb} x {wb} luma blocks ({wb // 2} MCUs a row)"
+        log(f"K6 {label}: {n_diff}/{n_bytes} output bytes differ from the plain version; "
+            f"launches by box {by_box}")
         check(n_diff == 0 and all(g.shape == w.shape and g.dtype == w.dtype
                                   for g, w in zip(got, want)), ("K6 differs", label, n_diff))
+        if dev.type == "cuda":
+            check(by_box == {(2, vs): 1}, ("K6 launches by box", label, by_box))
         del got, want
         n_pixels = b * hb * wb * 64
-        b_ms, b_by = k6_bound(n_pixels)
-        fns = (lambda: color.round_trip_420_plain(*samples),
+        b_ms, b_by = k6_bound(n_pixels, vs)
+        fns = (lambda: color.round_trip_plain(*samples),
                lambda: kernels.color_round_trip(*samples))
         timings = {"L2 flushed": device_ms(*fns, flush=flush), "warm": device_ms(*fns)}
+        rate = (4 + 4 // vs + 6) * n_pixels
         for what, (p_ms, k_ms) in timings.items():
             log(f"K6 {label}, {what}: {k_ms:.6f} ms ({b_ms / k_ms:.1%} of its {b_by} bound "
-                f"{b_ms:.6f} ms, {12 * n_pixels / k_ms / 1e9:.3f} TB/s), plain {p_ms:.6f} ms "
+                f"{b_ms:.6f} ms, {rate / k_ms / 1e9:.3f} TB/s), plain {p_ms:.6f} ms "
                 f"(CUDA events, median of {TIMED_RUNS} in turns)")
-        if record is None:
+        if vs not in records:
             p_ms, k_ms = timings["L2 flushed"]
-            record = {"name": "color_round_trip[full_step]", "route": "cuda",
-                      "source": K6_SOURCE, "replaces": K6_REPLACES, "launches": launches,
-                      "max_abs_err": n_diff, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": None}
+            name = "color_round_trip[full_step]" if vs == 2 else "color_round_trip[full_step 4:2:2]"
+            records[vs] = {"name": name, "route": "cuda", "source": K6_SOURCE,
+                           "replaces": K6_REPLACES, "launches": launches[2 - vs],
+                           "max_abs_err": n_diff, "ms": k_ms, "plain_ms": p_ms,
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         del samples
     del flush
-    return record
+    return [records[2], records[1]]
 
 
 def gray_coefficients(b, hb, wb, dev, seed):
@@ -2747,7 +2862,10 @@ def step_phase_only(dev):
     datas = [encode_420(synth_image(seed, SIZE), 75) for seed in range(N_IMAGES)]
     log(f"full step only: {N_IMAGES} sources {SIZE}x{SIZE} encoded, "
         f"{time.perf_counter() - t0:.3f} s")
-    return list(phase_full_step(step_inputs(datas), dev)[0].values())
+    inputs = step_inputs(datas)
+    records = list(phase_full_step(inputs, dev)[0].values())
+    phase_full_step_422(inputs, dev)
+    return records
 
 
 def main(argv=None):
@@ -2770,7 +2888,7 @@ def main(argv=None):
     elif args.phase == "full_step":
         kernel_records = step_phase_only(dev)
     elif args.phase == "color_round_trip":
-        kernel_records = [phase_color_round_trip(dev)]
+        kernel_records = phase_color_round_trip(dev)
     elif args.phase == "gray_step":
         kernel_records = phase_gray_step(dev)
     else:
@@ -2797,8 +2915,10 @@ def run_all(dev):
     phase_fancy_u16(sl, dev)
     stripe_launches = phase_stripes(sl, dev)
     scan_records = phase_device_scan(sl["sources"], sl["datas"], dev)
-    step_records, k6_launches = phase_full_step(step_inputs(sl["datas"]), dev)
-    record_k6 = phase_color_round_trip(dev, k6_launches)
+    inputs = step_inputs(sl["datas"])
+    step_records, k6_launches = phase_full_step(inputs, dev)
+    k6_launches_422 = phase_full_step_422(inputs, dev)
+    records_k6 = phase_color_round_trip(dev, (k6_launches, k6_launches_422))
     gray_records = phase_gray_step(dev)
     phase_mesh(sl)
     record_k4 = phase_golden(sl, dev)
@@ -2809,7 +2929,7 @@ def run_all(dev):
         f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}; K5 on "
         f"full_step {step_records['k5']['launches']}")
     return [*records.values(), record_k2, *box_records.values(), *scan_records.values(),
-            *step_records.values(), record_k6, *gray_records, record_k4]
+            *step_records.values(), *records_k6, *gray_records, record_k4]
 
 
 if __name__ == "__main__":

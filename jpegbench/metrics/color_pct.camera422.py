@@ -1,0 +1,15 @@
+"""``color_pct.camera422``: ``color_pct.recompress`` in the cell of 4:2:2
+frames: the share of the complete steps' kernel time launched under the
+program's ``full_step.to_rgb`` and ``full_step.to_ycbcr`` spans (K6's
+4:2:2 instantiation). It is that metric's reader, loaded as it stands; a
+run of another entry than ``recompress_422`` reads None."""
+
+from jpegbench.core.spec import metric_reader
+
+_read = metric_reader("color_pct.recompress")
+
+
+def read(ctx):
+    if ctx.workload is None or ctx.workload.traffic.get("entry") != "recompress_422":
+        return None
+    return _read(ctx)

@@ -109,6 +109,7 @@ _K6_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,  # y, cb planes
     ctypes.c_void_p,                   # cr plane
     ctypes.c_int64, ctypes.c_int64,    # mcu_rows, mcus_per_row
+    ctypes.c_int,                      # vs, the MCU's height in blocks
     ctypes.c_void_p,                   # constants (host)
     ctypes.c_void_p,                   # cudaStream_t
 ]

@@ -3,14 +3,16 @@
 Port of ``jpeglibrary_tpu/ops/color.py``, both directions, bit-exact: the
 same constants, int32 products, arithmetic ``>>`` and clamps.
 
-:func:`round_trip_420_plain` is the plain version of K6
-(``kernels.color_round_trip``): ``full_step``'s chain from K1's 4:2:0
-samples to the RGB output and K2's planes, composed of the functions here
-and in ``decode_stage``. :data:`ROUND_TRIP_CONSTANTS` are the constants the
+:func:`round_trip_plain` is the plain version of K6
+(``kernels.color_round_trip``): ``full_step``'s chain from K1's 4:2:0 or
+4:2:2 samples to the RGB output and K2's planes, composed of the functions
+here and in ``decode_stage``. :data:`ROUND_TRIP_CONSTANTS` are the constants the
 kernel is handed.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -77,17 +79,38 @@ def rgb_to_ycbcr(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     return y.to(torch.uint8), cb.to(torch.uint8), cr.to(torch.uint8)
 
 
-def round_trip_420_plain(y_samples: torch.Tensor, cb_samples: torch.Tensor,
-                         cr_samples: torch.Tensor):
-    """K1's int32 4:2:0 samples, luma [B, Hb, Wb, 8, 8] and each chroma
-    [B, Hb/2, Wb/2, 8, 8], -> (rgb uint8 [B, H, W, 3], y, cb, cr uint8
-    [B, H, W]): each component laid out as a plane, the chroma duplicated
-    2x2, clamped to [0, 255], converted to RGB and back to YCbCr, in the
-    order of the JAX step (``jpeglibrary_tpu/parallel/sharding.py:70-117``)."""
+def round_trip_factors(y_shape, cb_shape, cr_shape) -> Tuple[int, int]:
+    """The chroma's (hs, vs) that K6, its plain version and ``full_step``
+    read from the block shapes of a batch's components, luma [B, Hb, Wb,
+    ...] and each chroma [B, Hc, Wc, ...]: (2, 2) where the chroma is [B, Hb/2, Wb/2] (4:2:0; Hb and Wb
+    even), (2, 1) where it is [B, Hb, Wb/2] (4:2:2; Wb even). Raises
+    ValueError on any other shapes, and where Cb and Cr differ."""
+    b, hb, wb = (int(n) for n in y_shape[:3])
+    if tuple(cb_shape[:3]) != tuple(cr_shape[:3]):
+        raise ValueError(f"Cb {tuple(cb_shape)} and Cr {tuple(cr_shape)} differ in shape")
+    if wb % 2 == 0 and tuple(cb_shape[:3]) == (b, hb, wb // 2):
+        return 2, 1
+    if hb % 2 == 0 and wb % 2 == 0 and tuple(cb_shape[:3]) == (b, hb // 2, wb // 2):
+        return 2, 2
+    raise ValueError(f"chroma {tuple(cb_shape[:3])} for luma {(b, hb, wb)}: the colour round "
+                     f"trip takes 4:2:0, [B, Hb/2, Wb/2] with Hb and Wb even, or 4:2:2, "
+                     f"[B, Hb, Wb/2] with Wb even")
+
+
+def round_trip_plain(y_samples: torch.Tensor, cb_samples: torch.Tensor,
+                     cr_samples: torch.Tensor):
+    """K1's int32 samples, luma [B, Hb, Wb, 8, 8] and each chroma [B, Hb/vs,
+    Wb/hs, 8, 8] (4:2:0 at (hs, vs) = (2, 2), 4:2:2 at (2, 1)), -> (rgb
+    uint8 [B, H, W, 3], y, cb, cr uint8 [B, H, W]): each component laid out
+    as a plane, the chroma duplicated hs x vs, clamped to [0, 255],
+    converted to RGB and back to YCbCr, in the order of the JAX step
+    (``jpeglibrary_tpu/parallel/sharding.py:70-117``). The factors come
+    from the shapes (:func:`round_trip_factors`)."""
+    hs, vs = round_trip_factors(y_samples.shape, cb_samples.shape, cr_samples.shape)
     y8, cb8, cr8 = (
         decode_stage.clamp_to_uint8(
-            decode_stage.upsample_duplicate(decode_stage.blocks_to_plane(s), up, up))
-        for s, up in ((y_samples, 1), (cb_samples, 2), (cr_samples, 2))
+            decode_stage.upsample_duplicate(decode_stage.blocks_to_plane(s), *up))
+        for s, up in ((y_samples, (1, 1)), (cb_samples, (hs, vs)), (cr_samples, (hs, vs)))
     )
     r, g, b = ycbcr_to_rgb(y8, cb8, cr8)
     return (torch.stack([r, g, b], dim=-1), *rgb_to_ycbcr(r, g, b))

@@ -80,15 +80,15 @@ bits of its non-zero mask, bins per warp in shared memory) and takes the
 plain version (``encode_stage.symbol_histograms_plain``) only for a CPU
 tensor; the results are integer sums and equal bit for bit.
 
-K6, ``full_step``'s colour round trip: K1's int32 4:2:0 samples to the
-step's RGB output and K2's three uint8 planes in one pass (layout, 2x2
-chroma duplication, clamp, YCbCr -> RGB, RGB -> YCbCr). It replaces no
-TPU kernel: the JAX step leaves these ops to XLA, which fuses them
-(``jpeglibrary_tpu/parallel/sharding.py:70-117``).
-:func:`color_round_trip` launches ``csrc/color_round_trip.cu`` for CUDA
-tensors and takes the plain version (``color.round_trip_420_plain``, the
-same chain in plain ops) only for CPU tensors; the two equal byte for
-byte.
+K6, ``full_step``'s colour round trip: K1's int32 4:2:0 or 4:2:2 samples
+to the step's RGB output and K2's three uint8 planes in one pass (layout,
+2x2 or 2x1 chroma duplication, clamp, YCbCr -> RGB, RGB -> YCbCr). It
+replaces no TPU kernel: the JAX step leaves these ops to XLA, which fuses
+them (``jpeglibrary_tpu/parallel/sharding.py:70-117``).
+:func:`color_round_trip` launches ``csrc/color_round_trip.cu`` (one
+instantiation a sampling) for CUDA tensors and takes the plain version
+(``color.round_trip_plain``, the same chain in plain ops) only for CPU
+tensors; the two equal byte for byte.
 
 Every wrapper checks its inputs, picks its route with :func:`_on_cuda`
 and launches through :func:`_launch`, the one place that loads the
@@ -636,20 +636,22 @@ def _round_trip_constants():
 
 def color_round_trip(y_samples: torch.Tensor, cb_samples: torch.Tensor,
                      cr_samples: torch.Tensor):
-    """K1's int32 samples of a batch of 4:2:0 images, luma [B, Hb, Wb, 8,
-    8] and each chroma [B, Hb/2, Wb/2, 8, 8] (Hb and Wb even) -> (rgb
-    uint8 [B, H, W, 3], y, cb, cr uint8 [B, H, W]), H = 8 Hb, W = 8 Wb:
-    the chroma duplicated 2x2, every sample clamped to [0, 255], the
-    fixed-point YCbCr -> RGB and RGB -> YCbCr of ``ops/color.py``. The
-    RGB is ``full_step``'s output, the three planes what K2 takes.
+    """K1's int32 samples of a batch of 4:2:0 or 4:2:2 images, luma [B,
+    Hb, Wb, 8, 8] and each chroma [B, Hb/2, Wb/2, 8, 8] (4:2:0) or [B, Hb,
+    Wb/2, 8, 8] (4:2:2) -> (rgb uint8 [B, H, W, 3], y, cb, cr uint8 [B,
+    H, W]), H = 8 Hb, W = 8 Wb: the chroma duplicated 2x2 or 2x1, every
+    sample clamped to [0, 255], the fixed-point YCbCr -> RGB and RGB ->
+    YCbCr of ``ops/color.py``. The RGB is ``full_step``'s output, the three
+    planes what K2 takes. The factors come from the shapes
+    (``color.round_trip_factors``).
 
-    On CPU tensors it runs the plain version,
-    ``color.round_trip_420_plain``; on CUDA tensors it launches
-    ``csrc/color_round_trip.cu``, or raises. Raises on any dtype but
-    int32, on a shape that is not 4:2:0 blocks (chroma not [B, Hb/2,
-    Wb/2, 8, 8], Hb or Wb odd) and on non-contiguous samples or samples
-    that do not start on a 16-byte boundary.
-    ``color_round_trip.launches`` counts the kernel's launches."""
+    On CPU tensors it runs the plain version, ``color.round_trip_plain``;
+    on CUDA tensors it launches ``csrc/color_round_trip.cu``'s instantiation
+    for the factors, or raises. Raises on any dtype but int32, on shapes
+    that are neither 4:2:0 nor 4:2:2 blocks, and on non-contiguous samples
+    or samples that do not start on a 16-byte boundary.
+    ``color_round_trip.launches`` counts the kernel's launches,
+    ``color_round_trip.launches_by_box`` the same launches by (hs, vs)."""
     samples = (y_samples, cb_samples, cr_samples)
     for name, s in zip(("y", "cb", "cr"), samples):
         if s.dtype != torch.int32:
@@ -663,17 +665,12 @@ def color_round_trip(y_samples: torch.Tensor, cb_samples: torch.Tensor,
             raise ValueError(f"{name} samples must start on a 16-byte boundary")
         if s.device != y_samples.device:
             raise ValueError(f"{name} samples on {s.device}, luma on {y_samples.device}")
-    b, hb, wb = y_samples.shape[:3]
-    if hb % 2 or wb % 2:
-        raise ValueError(f"{hb} x {wb} luma blocks are no whole 4:2:0 MCUs")
-    for name, s in (("cb", cb_samples), ("cr", cr_samples)):
-        if tuple(s.shape[:3]) != (b, hb // 2, wb // 2):
-            raise ValueError(f"{name} samples must be [{b}, {hb // 2}, {wb // 2}, 8, 8] "
-                             f"(4:2:0), got {tuple(s.shape)}")
+    hs, vs = color.round_trip_factors(*(s.shape for s in samples))
     device = y_samples.device
     if not _on_cuda(device, "K6"):
-        return color.round_trip_420_plain(*samples)
+        return color.round_trip_plain(*samples)
 
+    b, hb, wb = y_samples.shape[:3]
     h, w = hb * 8, wb * 8
     rgb = torch.empty((b, h, w, 3), dtype=torch.uint8, device=device)
     planes = [torch.empty((b, h, w), dtype=torch.uint8, device=device) for _ in range(3)]
@@ -681,8 +678,10 @@ def color_round_trip(y_samples: torch.Tensor, cb_samples: torch.Tensor,
         return (rgb, *planes)
     _launch("K6", color_round_trip, "jpx_color_round_trip", device,
             *(s.data_ptr() for s in samples), rgb.data_ptr(), *(p.data_ptr() for p in planes),
-            b * hb // 2, wb // 2, ctypes.addressof(_round_trip_constants()))
+            b * hb // vs, wb // hs, vs, ctypes.addressof(_round_trip_constants()),
+            box=(hs, vs))
     return (rgb, *planes)
 
 
 color_round_trip.launches = 0
+color_round_trip.launches_by_box = {}

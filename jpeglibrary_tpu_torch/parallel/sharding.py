@@ -20,13 +20,13 @@ DC predictor chain at a shard boundary, and the gathers of the batch
 decode.
 
 The single-device part: ``full_step``, the package's flagship device step
-(the decode transform of a batch of 4:2:0 images, the full re-encode
-transform and the true Huffman symbol statistics), ``assemble_stripes``
-and ``batched_transform_rgb``. The decode half runs K1
-(``kernels.dequantize_idct_shift``), the colour round trip K6
+(the decode transform of a batch of 4:2:0 or 4:2:2 images, the full
+re-encode transform and the true Huffman symbol statistics),
+``assemble_stripes`` and ``batched_transform_rgb``. The decode half runs
+K1 (``kernels.dequantize_idct_shift``), the colour round trip K6
 (``kernels.color_round_trip``: K1's samples to the RGB output and K2's
 uint8 planes), the re-encode K2 (``kernels.fdct_quantize``, which fuses
-the chroma's 2x2 box), the statistics
+the chroma's 2x2 or 2x1 box), the statistics
 ``encode_stage.symbol_histograms_device`` (K5,
 ``kernels.symbol_histograms``, on the requantised int16 planes where K2
 wrote them, walked in MCU order in place): 3 K1, 1 K6, 3 K2 and 2 K5
@@ -150,19 +150,23 @@ def _fdct_quantize_batch(planes: torch.Tensor, qt_zz: torch.Tensor, *, level_shi
 
 
 def full_step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, *, device):
-    """The flagship device step over a batch of 4:2:0 images, on
+    """The flagship device step over a batch of 4:2:0 or 4:2:2 images, on
     ``device``: the decode transform (dequantize + IDCT + level shift,
     duplicate upsampling, YCbCr -> RGB), the full re-encode transform
-    (RGB -> YCbCr, the chroma's 2x2 box, FDCT + quantize of every
-    component) and the DC and AC Huffman symbol histograms of the
-    re-encoded blocks, per table class.
+    (RGB -> YCbCr, the chroma's box, FDCT + quantize of every component)
+    and the DC and AC Huffman symbol histograms of the re-encoded blocks,
+    per table class.
 
     ``y_coeffs`` int16 [B, Hb, Wb, 64] and ``cb_coeffs``, ``cr_coeffs``
-    int16 [B, Hb/2, Wb/2, 64] zig-zag; ``qt_luma``, ``qt_chroma`` int32
-    [64] zig-zag. Inputs not on ``device`` are copied there. Returns (rgb
-    uint8 [B, H, W, 3], requant_y int16 [B, Hb, Wb, 64], hists int32
-    [4, 256]: DC luma, AC luma, DC chroma, AC chroma), on ``device``. On
-    the card: 3 K1, 1 K6, 3 K2 and 2 K5 launches.
+    int16 [B, Hb/2, Wb/2, 64] (4:2:0) or [B, Hb, Wb/2, 64] (4:2:2)
+    zig-zag: the chroma's sampling (hs, vs) = (2, 2) or (2, 1) is read from
+    the shapes (``color.round_trip_factors``), and any other shape raises
+    ValueError. ``qt_luma``, ``qt_chroma`` int32 [64] zig-zag. Inputs not
+    on ``device`` are copied there. Returns (rgb uint8 [B, H, W, 3],
+    requant_y int16 [B, Hb, Wb, 64], hists int32 [4, 256]: DC luma, AC
+    luma, DC chroma, AC chroma), on ``device``; the luma's histograms count
+    its blocks in the interleaved scan's (hs, vs) MCU order. On the card:
+    3 K1, 1 K6, 3 K2 and 2 K5 launches.
 
     Spans (``ops._trace.span``, open only while a torch profiler runs or
     the metrics table is enabled): ``full_step`` around the whole call,
@@ -193,10 +197,12 @@ def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1=kernels.dequant
     yardstick ``chip_smoke.py`` holds the step to on the card) as ``k1``
     and ``k2``, the symbol statistics as ``k5`` (through K5's wrapper, or
     ``encode_stage.symbol_histograms_plain``) and the colour round trip as
-    ``k6`` (K6's wrapper, or ``color.round_trip_420_plain``); the defaults
+    ``k6`` (K6's wrapper, or ``color.round_trip_plain``); the defaults
     are the kernels the step runs. Returns (rgb,
     (requant_y, requant_cb, requant_cr), hists): the step's outputs with
-    the requantised chroma it counts besides.
+    the requantised chroma it counts besides. The chroma's sampling (hs,
+    vs) comes from the shapes (``color.round_trip_factors``): it sets
+    K2's chroma box and the luma's MCU walk in the statistics.
 
     The histograms count B luma chains, then B Cb and B Cr chains, each
     from DC 0; ``chain_prev``, where given, maps the last DC of each of
@@ -210,6 +216,7 @@ def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1=kernels.dequant
     ``full_step.stats`` (``chain_prev``, the two K5 calls and the
     histograms' stack)."""
     b = y_coeffs.shape[0]
+    hs, vs = color.round_trip_factors(y_coeffs.shape, cb_coeffs.shape, cr_coeffs.shape)
 
     with span("full_step.decode"):
         samples = [k1(c.contiguous(), q, 128) for c, q in (
@@ -219,19 +226,19 @@ def _step(y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma, k1=kernels.dequant
     # The re-encode transform, all three components; K2 boxes the chroma.
     with span("full_step.fdct"):
         requant_y = _fdct_quantize_batch(y2, qt_luma, k2=k2)
-        requant_cb = _fdct_quantize_batch(cb2, qt_chroma, hs=2, vs=2, k2=k2)
-        requant_cr = _fdct_quantize_batch(cr2, qt_chroma, hs=2, vs=2, k2=k2)
+        requant_cb = _fdct_quantize_batch(cb2, qt_chroma, hs=hs, vs=vs, k2=k2)
+        requant_cr = _fdct_quantize_batch(cr2, qt_chroma, hs=hs, vs=vs, k2=k2)
 
     # The symbol statistics, on the planes where K2 wrote them: the luma in
-    # its 2x2 MCU walk, each chroma component a chain of its own. The last
-    # block of each walk is the plane's bottom-right one.
+    # its (hs, vs) MCU walk, each chroma component a chain of its own. The
+    # last block of each walk is the plane's bottom-right one.
     with span("full_step.stats"):
         prev_l = prev_c = None
         if chain_prev is not None:
             last = torch.cat([q[:, -1, -1, 0] for q in (requant_y, requant_cb, requant_cr)])
             prev = chain_prev(last.to(torch.int32))
             prev_l, prev_c = prev[:b], prev[b:]
-        dc_l, ac_l = k5(requant_y, prev_dc=prev_l, mcu=(2, 2))
+        dc_l, ac_l = k5(requant_y, prev_dc=prev_l, mcu=(hs, vs))
         dc_c, ac_c = k5((requant_cb, requant_cr), prev_dc=prev_c)
         hists = torch.stack([dc_l, ac_l, dc_c, ac_c])
     return rgb, (requant_y, requant_cb, requant_cr), hists
@@ -337,30 +344,33 @@ def _make_sharded(mesh, shard_step):
 
 def make_sharded_full_step(mesh):
     """:func:`full_step` over ``mesh``: the batch over ``data`` and the luma
-    block rows over ``stripe`` (the chroma rows follow at half), as JAX's
-    ``P("data", "stripe")``. Each rank runs the step on its block on its
-    own device (3 K1, 1 K6, 3 K2 and 2 K5 launches); at each stripe boundary the DC
-    predictor chains (each image's luma, Cb and Cr) take the previous
-    stripe's last DC, and the histograms are all-reduced over the mesh.
+    block rows over ``stripe`` (the chroma rows follow, at half at 4:2:0
+    and at full height at 4:2:2), as JAX's ``P("data", "stripe")``. Each
+    rank runs the step on its block on its own device (3 K1, 1 K6, 3 K2 and
+    2 K5 launches); at each stripe boundary the DC predictor chains (each
+    image's luma, Cb and Cr) take the previous stripe's last DC, and the
+    histograms are all-reduced over the mesh.
 
     The returned function takes :func:`full_step`'s inputs, the same on
     every rank, and returns (rgb, requant_y) as DTensors sharded
     ``[Shard(0), Shard(1)]`` and hists as a replicated DTensor, equal to
-    :func:`full_step`'s outputs. A shard must hold whole 4:2:0 MCU rows:
-    the batch divides over ``data`` and an even number of luma block rows
-    falls to each stripe, or it raises."""
+    :func:`full_step`'s outputs. A shard must hold whole MCU rows (of 2
+    luma block rows at 4:2:0, of 1 at 4:2:2): the batch divides over
+    ``data`` and a whole number of MCU rows falls to each stripe, or it
+    raises, as it does on a sampling :func:`full_step` does not take."""
     def shard_step(args, rows, s, n_stripe, device, chain_prev):
         y_coeffs, cb_coeffs, cr_coeffs, qt_luma, qt_chroma = args
-        b, hb, wb = y_coeffs.shape[:3]
-        if hb % (2 * n_stripe):
-            raise ValueError(f"{hb} luma block rows are no whole MCU rows on each of "
-                             f"{n_stripe} stripes")
-        if tuple(cb_coeffs.shape[:3]) != (b, hb // 2, wb // 2) or cr_coeffs.shape != cb_coeffs.shape:
-            raise ValueError("chroma must be [B, Hb/2, Wb/2, 64] (4:2:0)")
+        hb = y_coeffs.shape[1]
+        short = f"{hb} luma block rows are no whole MCU rows on each of {n_stripe} stripes"
+        if hb % n_stripe:
+            raise ValueError(short)
+        _, vs = color.round_trip_factors(y_coeffs.shape, cb_coeffs.shape, cr_coeffs.shape)
         hl = hb // n_stripe
+        if hl % vs:
+            raise ValueError(short)
         y = y_coeffs[rows, s * hl:(s + 1) * hl]
-        cb = cb_coeffs[rows, s * hl // 2:(s + 1) * hl // 2]
-        cr = cr_coeffs[rows, s * hl // 2:(s + 1) * hl // 2]
+        cb = cb_coeffs[rows, s * hl // vs:(s + 1) * hl // vs]
+        cr = cr_coeffs[rows, s * hl // vs:(s + 1) * hl // vs]
         rgb, requant, hists = _step(*_step_inputs(y, cb, cr, qt_luma, qt_chroma, device),
                                     chain_prev=chain_prev)
         return rgb, requant[0], hists

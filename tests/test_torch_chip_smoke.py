@@ -209,8 +209,9 @@ def k1_probe():
 
 def test_k1_probe_launches_are_the_cells_steps(k1_probe):
     """tools/k1_probe.py times K1's launches of each benchmark cell's step:
-    the luma and twice the half-size chroma of a 4:2:0 batch (planes padded
-    to whole MCUs), the plane store on a one-component series."""
+    the luma and twice the chroma of a 4:2:0 batch (half size, planes padded
+    to whole 16 x 16 MCUs) or of a 4:2:2 batch (half width, whole 16 x 8
+    MCUs), the plane store on a one-component series."""
     import json
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -223,9 +224,10 @@ def test_k1_probe_launches_are_the_cells_steps(k1_probe):
         if config.get("components") == 1:
             want.add((cell["name"], 1, "plane", (b, config["height"] // 8, config["width"] // 8)))
             continue
-        hb, wb = -(-config["height"] // 16) * 2, -(-config["width"] // 16) * 2
+        vs = 1 if config.get("subsampling") == "4:2:2" else 2
+        hb, wb = -(-config["height"] // (8 * vs)) * vs, -(-config["width"] // 16) * 2
         want.add((cell["name"], 1, "blocks", (b, hb, wb)))
-        want.add((cell["name"], 2, "blocks", (b, hb // 2, wb // 2)))
+        want.add((cell["name"], 2, "blocks", (b, hb // vs, wb // 2)))
     got = {(cell, per_step, store, shape)
            for cell, _, per_step, store, shape, _, _ in k1_probe.LAUNCHES}
     assert got == want
@@ -396,6 +398,25 @@ def test_new_phases_rehearse_on_the_cpu(smoke, monkeypatch):
     assert failed[8][0] == "full_step copies its blocks for the statistics"
     assert [op for op, _ in failed[8][1]] == ["permute"] * 3 + ["cat"]
     assert len(failed) == 9
+
+
+def test_full_step_422_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """The 4:2:2 full-step phase runs end to end on the CPU at a small size:
+    its step agrees with the plain step and its histograms with the host
+    gather in (2, 1) MCU order; only the launch counts fail, by sampling
+    and by walk, which only the card meets."""
+    failed = []
+    monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    datas = [smoke.encode_420(smoke.synth_image(s, 32), 75) for s in range(2)]
+    inputs = smoke.step_inputs(datas)
+    (y, cb, cr), _ = smoke.inputs_422(inputs)
+    assert cb.shape == cr.shape == (2, 4, 2, 64) and y.shape == (2, 4, 4, 64)
+    assert np.array_equal(cb[:, 0::2], inputs[0][1]) and np.array_equal(cb[:, 1::2], cb[:, 0::2])
+    assert smoke.phase_full_step_422(inputs, torch.device("cpu")) == 0
+    assert failed == [("full_step 4:2:2 launches", 0, 0, 0, 0),
+                      ("full_step 4:2:2 K6 boxes", {}), ("full_step 4:2:2 K2 boxes", {}),
+                      ("full_step 4:2:2 K2 walks", {})]
 
 
 def test_gray_step_phase_rehearses_on_the_cpu(smoke, monkeypatch):

@@ -1,16 +1,17 @@
 """PyTorch port, K6 (``kernels.color_round_trip``, ``csrc/color_round_trip.cu``)
-on the CPU: its wrapper takes the plain version there
-(``color.round_trip_420_plain``, the step's colour ops one by one); a
+on the CPU, at 4:2:0 and 4:2:2: its wrapper takes the plain version there
+(``color.round_trip_plain``, the step's colour ops one by one); a
 model of the kernel in numpy (its index arithmetic and its folded
-constants, step by step as the source has them) must equal it byte for
-byte; every (Y, Cb, Cr) byte triple goes
+constants, step by step as the source has them, at either MCU height)
+must equal it byte for byte; every (Y, Cb, Cr) byte triple goes
 through the round trip once, against the JAX package's colour functions;
 the wrapper refuses what the kernel does not take; ``_step`` gives the same
 outputs with the plain version and with the model, and those of the JAX
 ``full_step``; ``chip_smoke.py``'s K6 phase runs end to end on the CPU.
 
-The kernel itself runs only on the card (``chip_smoke.py`` holds it to the
-plain version there, 0 bytes differing)."""
+The kernel itself runs only on the card (``chip_smoke.py`` and
+``tests/test_torch_color_round_trip_card.py`` hold it to the plain version
+there, 0 bytes differing)."""
 
 import importlib.util
 import pathlib
@@ -38,18 +39,20 @@ from torch_reference_native import settle
 settle()  # the JAX package's native scanner, built once before any test
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-KERNEL_MCUS = 8  # kMcus of csrc/color_round_trip.cu: MCUs of a CTA's strip
+KERNEL_STRIP = 16  # csrc/color_round_trip.cu's strip: kMcus = KERNEL_STRIP / VS MCUs
 
 
 def _reference_chain(y, cb, cr):
     """The JAX ``full_step``'s decode tail and colour round trip, its ops
-    with ``xp=np`` on numpy int32 samples: (rgb, y', cb', cr') uint8."""
+    with ``xp=np`` on numpy int32 samples, the chroma duplicated by the
+    luma's block rows and columns over its own: (rgb, y', cb', cr') uint8."""
     def plane(s, up):
         p = s.transpose(0, 1, 3, 2, 4).reshape(s.shape[0], s.shape[1] * 8, s.shape[2] * 8)
-        return np.repeat(np.repeat(p, up, axis=1), up, axis=2)
+        return np.repeat(np.repeat(p, up[1], axis=1), up[0], axis=2)
 
-    y8, cb8, cr8 = (ref_decode_stage.clamp_to_uint8(plane(s, up), xp=np)
-                    for s, up in ((y, 1), (cb, 2), (cr, 2)))
+    up = (y.shape[2] // cb.shape[2], y.shape[1] // cb.shape[1])
+    y8, cb8, cr8 = (ref_decode_stage.clamp_to_uint8(plane(s, u), xp=np)
+                    for s, u in ((y, (1, 1)), (cb, up), (cr, up)))
     r, g, b = ref_color.ycbcr_to_rgb(y8, cb8, cr8, xp=np)
     return (np.stack([r, g, b], axis=-1), *ref_color.rgb_to_ycbcr(r, g, b, xp=np))
 
@@ -75,18 +78,22 @@ def _pad_to(words, mod32):
     return words + ((mod32 - words % 32) + 32) % 32
 
 
-def _kernel_model(y, cb, cr, mcus=KERNEL_MCUS):
-    """``color_round_trip_kernel`` in numpy, CTA by CTA, its threads as
+def _kernel_model(y, cb, cr):
+    """``color_round_trip_kernel<VS>`` in numpy, CTA by CTA, its threads as
     arrays: the same chunk loads, shared-memory offsets, staged rows and
-    store loop. int32 numpy samples -> (rgb, y', cb', cr') as the wrapper
+    store loop, VS (the MCU's height in blocks) the luma's block rows over
+    the chroma's. int32 numpy samples -> (rgb, y', cb', cr') as the wrapper
     returns them."""
     b, hb, wb = y.shape[:3]
-    wm, mcu_rows = wb // 2, b * hb // 2
+    vs = hb // cb.shape[1]
+    rows = 8 * vs  # luma rows of an MCU
+    mcus = KERNEL_STRIP // vs  # MCUs of a CTA's strip
+    wm, mcu_rows = wb // 2, b * hb // vs
     strips = -(-wm // mcus)
     width = 16 * wm
     y4, cb4, cr4 = (s.reshape(-1, 4) for s in (y, cb, cr))
-    rgb = np.zeros((mcu_rows * 16, width * 3), np.uint8)
-    planes = np.zeros((3, mcu_rows * 16, width), np.uint8)
+    rgb = np.zeros((mcu_rows * rows, width * 3), np.uint8)
+    planes = np.zeros((3, mcu_rows * rows, width), np.uint8)
     rgb_pitch, plane_pitch = 4 * _pad_to(12 * mcus, 12), 4 * _pad_to(4 * mcus, 4)
     for blk in range(mcu_rows * strips):
         m, mcu0 = blk // strips, (blk % strips) * mcus
@@ -99,33 +106,33 @@ def _kernel_model(y, cb, cr, mcus=KERNEL_MCUS):
             sel = (comp == c_) & (i < 16 * n)
             s_chroma[c_][i[sel]] = src[(m * wm + mcu0) * 16 + i[sel]]
         s_chroma = s_chroma.reshape(2, -1)
-        s_rgb = np.zeros((16, rgb_pitch), np.uint8)
-        s_plane = np.zeros((3, 16, plane_pitch), np.uint8)
+        s_rgb = np.zeros((rows, rgb_pitch), np.uint8)
+        s_plane = np.zeros((3, rows, plane_pitch), np.uint8)
         t = threads[threads < 32 * n]
         bb, q = t // 16, t % 16
         col = bb * 8 + (q % 2) * 4
         chroma_col = (bb // 2) * 64 + (bb % 2) * 4 + (q % 2) * 2
-        for r in range(2):
-            luma = y4[((2 * m + r) * 2 * wm + 2 * mcu0) * 16 + t]
+        for r in range(vs):
+            luma = y4[((vs * m + r) * 2 * wm + 2 * mcu0) * 16 + t]
             row = r * 8 + q // 2
-            at = (chroma_col + (row // 2) * 8)[:, None] + np.array([0, 0, 1, 1])
+            at = (chroma_col + (row // vs) * 8)[:, None] + np.array([0, 0, 1, 1])
             out = _convert(luma, s_chroma[0][at], s_chroma[1][at])
             s_rgb[row[:, None], 3 * col[:, None] + np.arange(12)] = np.stack(
                 out[:3], -1).reshape(-1, 12)
             for p, v in enumerate(out[3:]):
                 s_plane[p, row[:, None], col[:, None] + np.arange(4)] = v
-        row0, col0 = 16 * m, 16 * mcu0
+        row0, col0 = rows * m, 16 * mcu0
         rgb_chunks = 3 * n
-        for i in range(16 * rgb_chunks + 48 * n):  # every thread's chunks
-            if i < 16 * rgb_chunks:
+        for i in range(rows * rgb_chunks + 3 * rows * n):  # every thread's chunks
+            if i < rows * rgb_chunks:
                 row, c = i // rgb_chunks, i % rgb_chunks
                 rgb[row0 + row, col0 * 3 + 16 * c:col0 * 3 + 16 * c + 16] = \
                     s_rgb[row, 16 * c:16 * c + 16]
             else:
-                j = i - 16 * rgb_chunks
-                plane = j // (16 * n)
-                row = (j - plane * 16 * n) // n
-                c = j - (plane * 16 + row) * n
+                j = i - rows * rgb_chunks
+                plane = j // (rows * n)
+                row = (j - plane * rows * n) // n
+                c = j - (plane * rows + row) * n
                 planes[plane, row0 + row, col0 + 16 * c:col0 + 16 * c + 16] = \
                     s_plane[plane, row, 16 * c:16 * c + 16]
     h = hb * 8
@@ -138,12 +145,14 @@ def _model_k6(y, cb, cr):
     return _kernel_model(*(s.numpy() for s in (y, cb, cr)))
 
 
-def _samples(b, hb, wb, seed):
-    """K1-range samples (-300 to 400) of a 4:2:0 batch, with the int32
-    extremes and the clamp's edges planted in each component."""
+def _samples(b, hb, wb, seed, vs=2):
+    """K1-range samples (-300 to 400) of a 4:2:0 (``vs`` 2) or 4:2:2 (1)
+    batch, with the int32 extremes and the clamp's edges planted in each
+    component."""
     rng = np.random.default_rng(seed)
     out = []
-    for shape in ((b, hb, wb, 8, 8), (b, hb // 2, wb // 2, 8, 8), (b, hb // 2, wb // 2, 8, 8)):
+    chroma = (b, hb // vs, wb // 2, 8, 8)
+    for shape in ((b, hb, wb, 8, 8), chroma, chroma):
         x = rng.integers(-300, 401, size=shape, dtype=np.int32)
         edges = np.array([-2**31, 2**31 - 1, -1, 0, 255, 256], np.int32)
         x.reshape(-1)[rng.choice(x.size, edges.size, replace=False)] = edges
@@ -156,27 +165,34 @@ def _samples(b, hb, wb, seed):
 # 5 and 33 MCUs (the last strip of a row ragged), at batch 1 and 3.
 SHAPES = [(1, 4, 512), (3, 2, 64), (1, 2, 2), (3, 4, 2), (1, 6, 10), (3, 2, 10), (1, 2, 66),
           (3, 4, 66)]
-IDS = ["x".join(map(str, s)) for s in SHAPES]
+# 4:2:2 batches (MCU rows of one block row): odd MCU rows, MCU rows of 1, 5,
+# 33 and 375 MCUs (the 24 MP cell's width: 23 whole strips of 16 MCUs and a ragged 7).
+SHAPES_422 = [(1, 3, 512), (3, 1, 64), (1, 1, 2), (3, 5, 2), (2, 3, 10), (1, 7, 66),
+              (2, 2, 750)]
+CASES = [(*s, 2) for s in SHAPES] + [(*s, 1) for s in SHAPES_422]
+IDS = ["x".join(map(str, s)) for s in SHAPES] + ["422-" + "x".join(map(str, s))
+                                                 for s in SHAPES_422]
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+@pytest.mark.parametrize("shape", CASES, ids=IDS)
 def test_wrapper_on_the_cpu_equals_the_chain(shape):
     """The wrapper (the plain version on the CPU) equals the JAX step's
-    decode tail and colour round trip byte for byte."""
-    samples = _samples(*shape, seed=sum(shape))
+    decode tail and colour round trip byte for byte, the chroma duplicated
+    2x2 (4:2:0) or 2x1 (4:2:2)."""
+    samples = _samples(*shape[:3], seed=sum(shape[:3]), vs=shape[3])
     got = kernels.color_round_trip(*samples)
     for g, w in zip(got, _reference_chain(*(s.numpy() for s in samples))):
         assert np.array_equal(g.numpy(), w)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+@pytest.mark.parametrize("shape", CASES, ids=IDS)
 def test_kernel_model_equals_the_plain_version(shape):
     """The kernel's model equals the wrapper, which takes the plain
     version on the CPU: the RGB [B, H, W, 3] and the three planes [B, H,
     W], uint8 and contiguous."""
-    samples = _samples(*shape, seed=7 * sum(shape))
+    samples = _samples(*shape[:3], seed=7 * sum(shape[:3]), vs=shape[3])
     got = kernels.color_round_trip(*samples)
-    b, hb, wb = shape
+    b, hb, wb = shape[:3]
     assert [tuple(g.shape) for g in got] == [(b, hb * 8, wb * 8, 3)] + [(b, hb * 8, wb * 8)] * 3
     for g, w in zip(_model_k6(*samples), got):
         assert w.dtype == torch.uint8 and w.is_contiguous() and torch.equal(g, w)
@@ -191,7 +207,7 @@ def test_samples_outside_the_byte_range_clamp():
     cb = torch.full((b, hb // 2, wb // 2, 8, 8), 400, dtype=torch.int32)
     cr = torch.full((b, hb // 2, wb // 2, 8, 8), -300, dtype=torch.int32)
     clamped = [s.clamp(0, 255) for s in (y, cb, cr)]
-    want = color.round_trip_420_plain(*clamped)
+    want = color.round_trip_plain(*clamped)
     for g, w in zip(kernels.color_round_trip(y, cb, cr), want):
         assert torch.equal(g, w)
     for g, w in zip(_model_k6(y, cb, cr), want):
@@ -241,8 +257,13 @@ def _good(b=1, hb=2, wb=2):
 
 
 @pytest.mark.parametrize("case", ["int16", "non-contiguous", "unaligned", "odd Hb", "odd Wb",
-                                  "chroma not half", "cb and cr differ", "flat blocks"])
+                                  "chroma not half", "cb and cr differ", "flat blocks",
+                                  "1x2", "4x1", "422 odd Wb", "420 Cb and 422 Cr",
+                                  "422 Cb and 420 Cr"])
 def test_wrapper_refuses(case):
+    """Shapes K6 does not take raise: the chroma at (1, 1) ("chroma not
+    half"), (1, 2) and (4, 1), Cb and Cr of two samplings, 4:2:2 with an
+    odd Wb; and samples of another type, layout or alignment."""
     y, cb, cr = _good()
     error = ValueError
     if case == "int16":
@@ -261,7 +282,20 @@ def test_wrapper_refuses(case):
         cr = torch.zeros((1, 1, 2, 8, 8), dtype=torch.int32)
     elif case == "flat blocks":
         y = y.reshape(1, 2, 2, 64)
-    with pytest.raises(error):
+    elif case == "1x2":  # the chroma halved down only
+        cb = cr = torch.zeros((1, 1, 2, 8, 8), dtype=torch.int32)
+    elif case == "4x1":
+        y = torch.zeros((1, 2, 4, 8, 8), dtype=torch.int32)
+        cb = cr = torch.zeros((1, 2, 1, 8, 8), dtype=torch.int32)
+    elif case == "422 odd Wb":
+        y = torch.zeros((1, 2, 3, 8, 8), dtype=torch.int32)
+        cb = cr = torch.zeros((1, 2, 1, 8, 8), dtype=torch.int32)
+    elif case == "420 Cb and 422 Cr":
+        cr = torch.zeros((1, 2, 1, 8, 8), dtype=torch.int32)
+    elif case == "422 Cb and 420 Cr":
+        cb = torch.zeros((1, 2, 1, 8, 8), dtype=torch.int32)
+    with pytest.raises(error, match=None if error is TypeError or case in (
+            "non-contiguous", "unaligned", "flat blocks") else "4:2:0|4:2:2|differ"):
         kernels.color_round_trip(y, cb, cr)
 
 
@@ -277,7 +311,7 @@ def test_kernel_source_is_bound():
     m = re.search(r'extern "C" int jpx_color_round_trip\(([^)]*)\)', text)
     assert m and m.group(1).count(",") + 1 == len(_build._ENTRY_POINTS["jpx_color_round_trip"])
     assert f"constexpr int kConstants = {len(color.ROUND_TRIP_CONSTANTS)};" in text
-    assert f"constexpr int kMcus = {KERNEL_MCUS};" in text
+    assert f"static constexpr int kMcus = {KERNEL_STRIP} / VS;" in text
 
 
 def _example_args(batch=2, hb=8, wb=16, seed=0):
@@ -297,7 +331,7 @@ def test_step_with_the_plain_version_and_the_model(args):
     inputs = _example_args(*args)
     rgb, requant, hists = sharding.full_step(*inputs, device="cpu")
     tensors = sharding._step_inputs(*inputs, "cpu")
-    for k6 in (color.round_trip_420_plain, _model_k6):
+    for k6 in (color.round_trip_plain, _model_k6):
         got_rgb, got_requants, got_hists = sharding._step(
             *tensors, kernels.dequantize_idct_shift, kernels.fdct_quantize, k6=k6)
         assert torch.equal(got_rgb, rgb) and torch.equal(got_requants[0], requant)
@@ -313,22 +347,30 @@ def test_step_with_the_plain_version_and_the_model(args):
 
 
 def test_chip_smoke_phase_rehearses_on_the_cpu(monkeypatch):
-    """``chip_smoke.py``'s K6 phase end to end on the CPU at small shapes,
-    the timers stubbed: the wrapper takes the plain version, and every
-    check holds; the record carries the launches it is handed."""
+    """``chip_smoke.py``'s K6 phase end to end on the CPU at small shapes of
+    both samplings, the timers stubbed: the wrapper takes the plain
+    version, and every check holds; the two records (4:2:0, then 4:2:2)
+    carry the launches they are handed and their bounds at 12 and 14 B a
+    luma pixel."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     failed = []
     monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
-    monkeypatch.setattr(smoke, "K6_SHAPES", ((2, 4, 8), (1, 2, 66)))
+    monkeypatch.setattr(smoke, "K6_SHAPES", ((2, 4, 8, 2), (1, 2, 66, 2), (2, 3, 8, 1),
+                                             (1, 5, 66, 1)))
     monkeypatch.setattr(smoke, "FLUSH_BYTES", 64)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(smoke, "device_ms", lambda *fns, **kw: [0.5 for fn in fns
                                                                  if fn() is not None])
-    record = smoke.phase_color_round_trip(torch.device("cpu"), 1)
+    records = smoke.phase_color_round_trip(torch.device("cpu"), (1, 2))
     assert failed == []
-    assert record["name"] == "color_round_trip[full_step]" and record["max_abs_err"] == 0
-    assert record["bound_by"] == "bytes" and record["launches"] == 1
-    assert smoke.phase_color_round_trip(torch.device("cpu"))["launches"] is None
-    assert record["bound_ms"] == pytest.approx(12 * 2 * 4 * 8 * 64 / 3.35e12 * 1e3)
+    assert [(r["name"], r["launches"]) for r in records] == [
+        ("color_round_trip[full_step]", 1), ("color_round_trip[full_step 4:2:2]", 2)]
+    for record in records:
+        assert record["max_abs_err"] == 0 and record["bound_by"] == "bytes"
+        assert record["ms"] == record["plain_ms"] == 0.5
+    assert [r["launches"] for r in smoke.phase_color_round_trip(torch.device("cpu"))] == [
+        None, None]
+    assert records[0]["bound_ms"] == pytest.approx(12 * 2 * 4 * 8 * 64 / 3.35e12 * 1e3)
+    assert records[1]["bound_ms"] == pytest.approx(14 * 2 * 3 * 8 * 64 / 3.35e12 * 1e3)

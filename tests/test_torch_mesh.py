@@ -129,7 +129,8 @@ REFUSALS = {
     "full_half_mcu_rows": ("full", (2, 2), ((2, 6, 4), (2, 3, 2)),
                            "6 luma block rows are no whole MCU rows on each of 2 stripes"),
     "full_not_420": ("full", (2, 1), ((2, 4, 4), (2, 4, 4)),
-                     "chroma must be [B, Hb/2, Wb/2, 64] (4:2:0)"),
+                     "chroma (2, 4, 4) for luma (2, 4, 4): the colour round trip takes 4:2:0, "
+                     "[B, Hb/2, Wb/2] with Hb and Wb even, or 4:2:2, [B, Hb, Wb/2] with Wb even"),
     "gray_batch": ("gray", (2, 1), ((3, 4, 4),), "a batch of 3 does not divide over 2 data ranks"),
     "gray_rows_over_stripes": ("gray", (2, 2), ((2, 5, 4),),
                                "5 block rows do not divide over 2 stripes"),
@@ -180,8 +181,8 @@ def test_sharded_full_step_matches_jax(request, world, n, stripe):
 def test_sharded_steps_refuse_shards_they_cannot_cut(world2, name):
     """Both sharded steps refuse, on every rank and before any exchange, a
     batch that does not divide over ``data`` and block rows that do not
-    fall in whole rows (whole 4:2:0 MCU rows for the full step) to each
-    stripe; the full step refuses chroma that is not 4:2:0."""
+    fall in whole rows (whole MCU rows for the full step) to each stripe;
+    the full step refuses chroma that is neither 4:2:0 nor 4:2:2."""
     want = ("ValueError", REFUSALS[name][3])
     for rank in world2["sharded_refusals"]:
         assert rank[name] == want

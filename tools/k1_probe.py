@@ -57,6 +57,8 @@ LAUNCHES = (
     ("recompress_imagenet_b256", "luma", 1, "blocks", (256, 48, 64), 128, None),
     ("recompress_imagenet_b256", "chroma", 2, "blocks", (256, 24, 32), 128, None),
     ("recompress_ct12_b512", "slices", 1, "plane", (512, 64, 64), 2048, 4095),
+    ("recompress_24mp_422_b4", "luma", 1, "blocks", (4, 500, 750), 128, None),
+    ("recompress_24mp_422_b4", "chroma", 2, "blocks", (4, 500, 375), 128, None),
 )
 
 
