@@ -1849,7 +1849,7 @@ def k5_edge_cases(seed=13):
     tails[2, 3:7] = 0
     valid = sparse(-300, 300, (3, 40, 64), 0.2)
     chained = sparse(-1000, 1000, (4, 20, 64), 0.2)
-    return [
+    cases = [
         ("int16 extremes", extremes, None, None),
         ("int32 sizes above 16", wide, None, None),
         ("zero runs", runs, None, None),
@@ -1859,6 +1859,31 @@ def k5_edge_cases(seed=13):
         ("prev_dc", chained, None, np.array([-2047, 0, 5, 1023], np.int32)),
         ("prev_dc and n_valid", chained, np.array([20, 0, 1, 13]),
          np.array([7, -7, 300, -32768], np.int32)),
+    ]
+    # Dense blocks, where a warp's 32 lanes stand at the same positions: every
+    # AC coefficient non-zero (rows of 200 blocks, two tiles), sizes 1 to 11.
+    dense = rng.integers(1, 2048, size=(2, 200, 64)) * rng.choice([-1, 1], size=(2, 200, 64))
+    dense = dense.astype(np.int16)
+    lone = np.zeros((1, 2 * 63, 64), np.int16)  # one non-zero AC at each position 1..63
+    lone[0, :, 0] = rng.integers(-900, 900, size=2 * 63)
+    lone[0, np.arange(2 * 63), 1 + np.arange(2 * 63) % 63] = rng.integers(1, 300, size=2 * 63)
+    ends = np.zeros((2, 40, 64), np.int16)  # non-zeros only at 1 and 63: a run of 61
+    ends[..., 0] = rng.integers(-50, 50, size=(2, 40))
+    ends[..., 1], ends[..., 63] = rng.integers(1, 99, size=(2, 40)), -rng.integers(1, 99, size=(2, 40))
+    floor = np.full((2, 70, 64), -32768, np.int16)  # every coefficient int16's -32768
+    floor[1, :, 0] = rng.integers(-32768, 32768, size=70)
+    sizes = np.int64(1) << rng.integers(0, 17, size=(2, 150, 64))  # int32 sizes 1 to 17
+    wide_dense = (sizes + rng.integers(0, 2, size=sizes.shape)) * rng.choice([-1, 1], sizes.shape)
+    cut = rng.integers(-700, 700, size=(4, 160, 64)).astype(np.int16)
+    cut[..., 1:] |= 1  # dense; n_valid ends inside a warp's 32 blocks
+    return cases + [
+        ("every AC coefficient non-zero", dense, None, None),
+        ("a lone non-zero at each position 1..63", lone, None, None),
+        ("non-zeros only at 1 and 63", ends, None, np.array([3, -3], np.int32)),
+        ("every coefficient -32768", floor, None, None),
+        ("int32 dense, sizes to 16 and past", wide_dense.astype(np.int32), None, None),
+        ("dense, n_valid inside a warp", cut, np.array([45, 129, 1, 160]),
+         np.array([-1, 2047, 0, 5], np.int32)),
     ]
 
 
@@ -1880,7 +1905,7 @@ def k5_plane_cases(seed=14):
     wide = sparse((2, 4, 70, 64), dtype=np.int32)
     wide[0, 1, 3, 5], wide[1, 2, 7, 9], wide[1, 3, 69, 63] = -(1 << 31), 1 << 20, -(1 << 17)
     luma = sparse((2, 6, 74, 64))  # 37 MCUs a row at (2, 2): tiles of 32 and 5 MCUs
-    return [
+    cases = [
         ("plane at MCU (2, 2)", luma, None, None, (2, 2)),
         ("plane at MCU (2, 2), n_valid and prev_dc", luma, np.array([444, 101]),
          np.array([-2047, 300], np.int32), (2, 2)),
@@ -1890,6 +1915,15 @@ def k5_plane_cases(seed=14):
         ("two planes at MCU (1, 1)", (sparse((3, 2, 150, 64)), sparse((3, 2, 150, 64), share=0.05)),
          np.array([300, 299, 0, 1, 150, 7]), np.array([1, -2, 3, -4, 5, -6], np.int32), (1, 1)),
         ("plane at MCU (4, 4)", sparse((1, 8, 36, 64)), None, np.array([9], np.int32), (4, 4)),
+    ]
+    dense_gray = sparse((3, 2, 150, 64), lo=-2047, hi=2048, share=1.0)  # the CT cell's walk
+    dense_gray[..., 1:] |= 1
+    dense_422 = sparse((2, 3, 74, 64), share=1.0)  # the 4:2:2 luma's walk: 37 MCUs a row
+    dense_422[..., 1:] |= 1
+    return cases + [
+        ("dense plane at MCU (1, 1), n_valid inside a warp", dense_gray,
+         np.array([300, 45, 161]), np.array([2047, -2048, 0], np.int32), (1, 1)),
+        ("dense plane at MCU (2, 1)", dense_422, np.array([444, 77]), None, (2, 1)),
     ]
 
 

@@ -32,12 +32,16 @@
 // What bounds it on Hopper: its bound is bytes. It reads 128 B of int16
 // coefficients a block (256 B as int32) and writes 2 KB: full_step's
 // 8 x 65,536 luma blocks are 67.1 MB, 20.0 us at 3.35 TB/s. What holds it
-// above that is the counting of its symbols, one a non-zero (tools/
-// k5_probe.py takes it apart): the step's luma has 17.7 non-zero AC
-// coefficients a block. The previous design (a warp per 4 blocks, 8
-// positions a lane) spent the same integer work on every position, zero
-// or not, and read its blocks in MCU order, after a copy that put them
-// there.
+// above that on dense blocks is its AC atomics, one a non-zero coefficient
+// (tools/k5_probe.py takes it apart): the warp's shared-memory atomic
+// increment updates one address per pass and counts the lanes that share
+// it at once, so it costs what its distinct bins cost. Without them the
+// CT series' planes (37 non-zero AC coefficients a block) take half the
+// time. The 32-way bank conflicts of the value loads where the lanes stand
+// at one position cost nothing measurable; lanes spread over the banks
+// (each lane's visits rotated) stand at different positions, meet more
+// distinct bins, and ran 1-4% slower. On sparse planes (the 16.8 MP cell's,
+// 3-14 non-zeros a block) the loads of the stages hold it.
 //
 // Design: the blocks are read where they lie. A tile is a run of whole
 // MCUs of one MCU row of one plane, 128 blocks: v bulk copies
@@ -51,16 +55,18 @@
 // kernel. A thread builds its block's 64-bit non-zero mask from 16-byte
 // loads (the chunks read in a rotated order, so the 8 lanes of a
 // shared-memory phase meet 8 different banks; the int16 pairs tested with
-// one add, and the flags gathered by a byte permute and a multiply), then
-// walks the mask's set bits from the top: each non-zero's run is its
-// position less the next lower set bit's, less one, and its size one clz of
-// the value, so the cost follows the non-zeros and not the 63 positions.
-// AC symbols go to private histograms per warp in shared memory with one
-// atomic each (the lanes of one atomic on one bin are one update);
-// ZRLs and EOBs are counted in registers and added once. At the end each
-// CTA sums its warps' copies and adds each non-empty bin to the output
-// with one global atomicAdd. The grid is at most one wave of resident
-// CTAs, each taking an equal share of the tiles.
+// one add, and the flags gathered by a byte permute and a multiply) and
+// keeps its DC from chunk 0; the DC before it in the walk is the lane
+// before's (a shuffle), read from shared memory by lane 0 alone. It then
+// visits the non-zero AC coefficients in ascending order: each run is the
+// gap to the visit before, each value loaded a visit ahead, the visits
+// unrolled by four after the remainder, so the cost follows the non-zeros
+// and not the 63 positions. AC symbols go to private histograms per warp in
+// shared memory with one atomic each (the lanes of one atomic on one bin
+// are one update); ZRLs and EOBs are counted in registers and added once.
+// At the end each CTA sums its warps' copies and adds each non-empty bin to
+// the output with one global atomicAdd. The grid is at most one wave of
+// resident CTAs, each taking an equal share of the tiles.
 
 #include <cuda_runtime.h>
 
@@ -184,77 +190,83 @@ __device__ __forceinline__ uint32_t byte_top_bits(uint32_t x) {
 }
 
 // The non-zero flags of the 8 (int16) or 4 (int32) coefficients of a
-// 16-byte chunk in shared memory, coefficient i at bit i.
-__device__ __forceinline__ uint32_t chunk_mask(const int16_t* p) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
+// 16-byte chunk, coefficient i at bit i.
+template <typename T>
+__device__ __forceinline__ uint32_t chunk_mask(uint4 q);
+
+template <>
+__device__ __forceinline__ uint32_t chunk_mask<int16_t>(uint4 q) {
   const uint32_t lo = __byte_perm(nonzero_halves(q.x), nonzero_halves(q.y), 0x7531);
   const uint32_t hi = __byte_perm(nonzero_halves(q.z), nonzero_halves(q.w), 0x7531);
   return byte_top_bits(lo) | (byte_top_bits(hi) << 4);
 }
 
-__device__ __forceinline__ uint32_t chunk_mask(const int32_t* p) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
+template <>
+__device__ __forceinline__ uint32_t chunk_mask<int32_t>(uint4 q) {
   return static_cast<uint32_t>(q.x != 0) | (static_cast<uint32_t>(q.y != 0) << 1) |
          (static_cast<uint32_t>(q.z != 0) << 2) | (static_cast<uint32_t>(q.w != 0) << 3);
 }
 
-// A block's 64-bit non-zero mask, bit p for zig-zag position p. Lane l
-// reads chunk (j + l) mod chunks in step j: a block is a whole number of
-// 128-byte bank rows, so the 8 lanes of a phase of a 16-byte load meet 8
-// different banks whichever blocks they hold.
+// A block's 64-bit non-zero mask, bit p for zig-zag position p, and its DC
+// coefficient. Lane l reads chunk (j + l) mod chunks in step j: a block is a
+// whole number of 128-byte bank rows, so the 8 lanes of a phase of a 16-byte
+// load meet 8 different banks whichever blocks they hold; the DC is taken
+// from chunk 0 in registers, not read again from its bank.
 template <typename T>
-__device__ __forceinline__ uint64_t nonzero_mask(const T* blk, int lane) {
+__device__ __forceinline__ uint64_t nonzero_mask(const T* blk, int lane, int32_t& dc) {
   constexpr int kChunks = 64 * static_cast<int>(sizeof(T)) / 16;
   constexpr int kPer = 64 / kChunks;
   uint64_t mask = 0;
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
     const int c = (j + lane) & (kChunks - 1);
-    mask |= static_cast<uint64_t>(chunk_mask(blk + c * kPer)) << (c * kPer);
+    const uint4 q = *reinterpret_cast<const uint4*>(blk + c * kPer);
+    mask |= static_cast<uint64_t>(chunk_mask<T>(q)) << (c * kPer);
+    if (c == 0) dc = static_cast<T>(q.x);
   }
   return mask;
 }
 
-// The AC symbols of a block with non-zero mask `mask`: its set bits from
-// the top, each one's run reaching down to the next lower set bit. The DC
-// bit, set as a sentinel, ends the lowest run; the mask is walked as two
-// 32-bit words, and each step loads the next one's value before it counts
-// its own, so the shared-memory load's latency overlaps the counting.
+// One block: its DC symbol (the difference to the walk's block before it),
+// its EOB and its AC symbols. The non-zero AC coefficients are visited in
+// ascending zig-zag order, each one's run the gap to the visit before it
+// (position 0 before the first), so a run is a subtraction and not a search
+// of the mask, and each value is loaded a visit ahead, so that its load
+// overlaps the atomic before it. The visits left over from whole fours come
+// first and the fours after, unrolled by hand: the same visits with the
+// fours first, or unrolled as nvcc chose, ran 7-24% slower on the dense
+// planes (tools/k5_probe.py on the cells' planes).
 template <typename T>
-__device__ __forceinline__ void count_ac(const T* blk, uint64_t mask, int32_t* ac_hist,
-                                         int& zrl) {
-  uint32_t hi = static_cast<uint32_t>(mask >> 32);
-  uint32_t lo = static_cast<uint32_t>(mask) | 1u;
-  int p = hi != 0 ? 63 - __clz(hi) : 31 - __clz(lo);
-  int32_t v = blk[p];
-  while (p > 0) {
-    const uint32_t bit = 1u << (p & 31);
-    if (p >= 32) {
-      hi ^= bit;
-    } else {
-      lo ^= bit;
-    }
-    const int q = hi != 0 ? 63 - __clz(hi) : 31 - __clz(lo);
-    const int32_t next = blk[q];
-    const int run = p - q - 1;
-    atomicAdd(&ac_hist[((run & 15) << 4) | coef_bits<T>(v)], 1);
-    zrl += run >> 4;
-    p = q;
-    v = next;
-  }
-}
-
-// One block: its DC symbol against `prev`, its EOB, its AC symbols.
-template <typename T>
-__device__ __forceinline__ void count_block(const T* blk, int32_t prev, int lane,
+__device__ __forceinline__ void count_block(const T* blk, uint64_t mask, int32_t diff,
                                             int32_t* dc_hist, int32_t* ac_hist, int& zrl,
                                             int& eob) {
-  const uint64_t mask = nonzero_mask(blk, lane);
-  const int32_t diff = static_cast<int32_t>(static_cast<uint32_t>(blk[0]) -
-                                            static_cast<uint32_t>(prev));
   atomicAdd(&dc_hist[bit_count(diff)], 1);
   eob += static_cast<int>((mask >> 63) ^ 1);
-  count_ac<T>(blk, mask, ac_hist, zrl);
+  uint64_t r = mask & ~uint64_t{1};
+  int last = 0;
+  int p = __ffsll(static_cast<long long>(r)) - 1;  // -1 once past the last
+  int32_t v = blk[p & 63];
+  const auto visit = [&]() {
+    r &= r - 1;
+    const int next = __ffsll(static_cast<long long>(r)) - 1;
+    const int32_t v_next = blk[next & 63];
+    const int run = p - last - 1;
+    zrl += run >> 4;
+    atomicAdd(&ac_hist[((run & 15) << 4) | coef_bits<T>(v)], 1);
+    last = p;
+    p = next;
+    v = v_next;
+  };
+  const int n = __popcll(r);
+#pragma unroll 1
+  for (int i = n & 3; i > 0; --i) visit();
+#pragma unroll 1
+  for (int i = n >> 2; i > 0; --i) {
+    visit();
+    visit();
+    visit();
+    visit();
+  }
 }
 
 template <typename T>
@@ -338,17 +350,26 @@ __global__ void __launch_bounds__(kThreads) symbol_hist_kernel(
       const TileInfo& info = infos[s];
       bool valid = m < info.mcus;
       if (valid && n_valid != nullptr) valid = info.t0 + k < n_valid[info.row];
+      const T* stage = stages + s * kStageElems;
+      uint64_t mask = 0;
+      int32_t dc = 0;
+      if (valid) mask = nonzero_mask<T>(stage + at * kBlockElems, lane, dc);
+      // The walk's block before thread k's is thread k - 1's, the lane
+      // before (which holds a block wherever this lane does), but for lane 0.
+      int32_t prev = __shfl_up_sync(0xFFFFFFFFu, dc, 1);
       if (valid) {
-        const T* stage = stages + s * kStageElems;
-        int32_t prev;
-        if (k > 0) {
-          prev = stage[before * kBlockElems];
-        } else if (info.t0 > 0) {
-          prev = reinterpret_cast<const T*>(info.pred)[0];
-        } else {
-          prev = prev_dc != nullptr ? prev_dc[info.row] : 0;
+        if (lane == 0) {
+          if (k > 0) {
+            prev = stage[before * kBlockElems];
+          } else if (info.t0 > 0) {
+            prev = reinterpret_cast<const T*>(info.pred)[0];
+          } else {
+            prev = prev_dc != nullptr ? prev_dc[info.row] : 0;
+          }
         }
-        count_block<T>(stage + at * kBlockElems, prev, lane, dc_hist, ac_hist, zrl, eob);
+        const int32_t diff = static_cast<int32_t>(static_cast<uint32_t>(dc) -
+                                                  static_cast<uint32_t>(prev));
+        count_block<T>(stage + at * kBlockElems, mask, diff, dc_hist, ac_hist, zrl, eob);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);

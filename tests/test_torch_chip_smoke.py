@@ -181,7 +181,8 @@ def k5_probe():
 
 @pytest.mark.parametrize("variant", ["whole kernel", "staged loads only", "loads and masks",
                                      "no AC atomics", "walk and atomics, no symbols", "2 stages",
-                                     "4 stages", "clock"])
+                                     "4 stages", "clock", "conflict-free gather",
+                                     "conflict-free gather, no AC atomics"])
 def test_k5_probe_cuts_apply_to_the_kernel_source(k5_probe, variant):
     """tools/k5_probe.py times K5 with parts cut out by text substitutions
     on csrc/symbol_hist.cu: each must still find its text exactly once."""

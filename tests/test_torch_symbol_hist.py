@@ -158,6 +158,26 @@ def test_edge_batch_covers_the_cases():
     assert sorted(n_valid) == [0, 17, blocks.shape[1]]
 
 
+def test_edge_batch_covers_the_dense_cases():
+    """The dense cases hold what they name: every AC coefficient non-zero
+    over more than one tile; one lone non-zero at each AC position 1..63;
+    non-zeros only at 1 and 63; int16's -32768 everywhere; int32 sizes
+    from 1 past 16; dense rows whose n_valid ends inside a warp's blocks."""
+    dense = CASES["every AC coefficient non-zero"][0]
+    assert (dense[..., 1:] != 0).all() and dense.shape[1] > 128
+    lone = CASES["a lone non-zero at each position 1..63"][0].reshape(-1, 64)
+    assert ((lone[:, 1:] != 0).sum(axis=1) == 1).all()
+    assert {int(np.flatnonzero(b[1:])[0]) + 1 for b in lone} == set(range(1, 64))
+    ends = CASES["non-zeros only at 1 and 63"][0].reshape(-1, 64)
+    assert (ends[:, 1] != 0).all() and (ends[:, 63] != 0).all() and (ends[:, 2:63] == 0).all()
+    assert (CASES["every coefficient -32768"][0][0] == -32768).all()
+    wide = np.abs(CASES["int32 dense, sizes to 16 and past"][0][..., 1:].astype(np.int64))
+    bits = np.floor(np.log2(wide)).astype(int) + 1
+    assert (wide > 0).all() and bits.min() == 1 and bits.max() > 16
+    blocks, n_valid, _ = CASES["dense, n_valid inside a warp"]
+    assert (blocks[..., 1:] != 0).all() and any(0 < n % 32 for n in n_valid)
+
+
 def test_size_16_aliases_into_the_run_nibble():
     """A size of 16 sets bit 4 of the symbol, the run's lowest bit, as the
     plain ``|`` does: run 0 or 1 at size 16 lands in 0x10, run 2 in 0x30."""

@@ -1,30 +1,45 @@
 """Where K5's time goes on one NVIDIA GPU.
 
-    python3 tools/k5_probe.py [--old PATH]
+    python3 tools/k5_probe.py [--old PATH] [--seed N]
 
 Builds variants of ``jpeglibrary_tpu_torch/csrc/symbol_hist.cu`` with one
 part cut out by a text substitution (the counting, leaving the staged
 loads; the AC walk, leaving loads and masks; the AC atomics, leaving the
-walk and the symbols; the symbol arithmetic and its loads, leaving the walk
-and the atomics; and 2 and 4 stages for 3), each into its own library under
-a temporary directory, and times them with CUDA events
+walk and the symbols; the symbol arithmetic, leaving the walk and the
+atomics; the values gathered from addresses rotated by the lane, so that no
+two lanes of a warp meet on one shared-memory bank, with and without the
+AC atomics; and 2 and 4 stages for 3), each into its own library under a
+temporary directory, and times them with CUDA events
 (``chip_smoke.device_ms``: median of 25 in turns, warm and with the L2
-flushed) on ``full_step``'s requantised planes, read in place: 8 synthetic
-2048x2048 q75 4:2:0 images made as ``chip_smoke.py`` makes them and run
-through ``full_step`` on the card, the luma [8, 256, 256, 64] int16 at MCU
-(2, 2) and the two chroma planes [8, 128, 128, 64] as one call; and on
-all-zero planes of the luma's shape. Beside them a read yardstick (a
-kernel that loads every 16 bytes once, coalesced, with no shared memory),
-one torch copy of the same planes (each byte read and written once) and the
-bytes bound (``chip_smoke.k5_bound``); and the consumer threads' clock64
-cycles waiting for stages and counting, in one flushed call. Each whole
-kernel's histograms are held to the plain version's (0 bins may differ).
+flushed) on requantised planes read in place:
 
-With ``--old PATH``, also the kernel's previous design (a warp per 4
-blocks of flat [B, N, 64] blocks in walk order, C entry ``(blocks,
-n_valid, prev_dc, n_rows, n_cols, out, stream)``; for example ``git show
-835f206:jpeglibrary_tpu_torch/csrc/symbol_hist.cu``) and its cuts, on the
-same blocks put into walk order for it beforehand (untimed).
+- ``full_step``'s planes of 8 synthetic 2048x2048 q75 4:2:0 images made as
+  ``chip_smoke.py`` makes them, the luma [8, 256, 256, 64] int16 at MCU
+  (2, 2) and the two chroma planes as one call, and all-zero planes of the
+  luma's shape;
+- each benchmark cell's: its first pool batch made from ``--seed`` by the
+  cell's own entry (``jpegbench/entries``) and run through the cell's step
+  (``full_step`` or ``gray_step``) on the card, each plane K5 counts there
+  at its MCU walk: the 16.8 MP and ImageNet luma at (2, 2) and chroma at
+  (1, 1), the CT series at (1, 1), the 4:2:2 luma at (2, 1) and chroma at
+  (1, 1).
+
+Beside them a read yardstick (a kernel that loads every 16 bytes once,
+coalesced, with no shared memory), one torch copy of the same planes (each
+byte read and written once) and the bytes bound (``chip_smoke.k5_bound``);
+and, in one flushed call, the consumer threads' clock64 cycles waiting for
+their stages and counting them (from a stage's arrival to the warp's
+release of it), with the count's cycles per AC symbol: summed over the
+consumer threads, over the planes' non-zero AC coefficients and the
+consumer threads an SM holds, the SM's cycles a symbol when its resident
+warps count at once. Each exact variant's histograms are held to the plain
+version's (0 bins may differ); the cuts that change the result are timed
+only.
+
+With ``--old PATH``, also another source of the kernel with the same C
+entry points (for example ``git show <commit>:jpeglibrary_tpu_torch/csrc/
+symbol_hist.cu``), whole and under the same clock, held to the plain
+version first.
 
 Prints the card's name and power limit first. Exits non-zero without a
 CUDA device. Writes nothing but temporary files.
@@ -49,24 +64,33 @@ import chip_smoke  # noqa: E402  (device_ms, the flush size, the inputs, the bou
 from jpeglibrary_tpu_torch.ops import _build, encode_stage, kernels  # noqa: E402
 
 SOURCE = ROOT / "jpeglibrary_tpu_torch" / "csrc" / "symbol_hist.cu"
-CALL = "count_block<T>(stage + at * kBlockElems, prev, lane, dc_hist, ac_hist, zrl, eob);"
+CALL = "count_block<T>(stage + at * kBlockElems, mask, diff, dc_hist, ac_hist, zrl, eob);"
+MASK = "      if (valid) mask = nonzero_mask<T>(stage + at * kBlockElems, lane, dc);\n"
 AC_ATOMIC = "    atomicAdd(&ac_hist[((run & 15) << 4) | coef_bits<T>(v)], 1);"
+NO_AC_ATOMIC = "    zrl += ((run & 15) << 4) | coef_bits<T>(v);"
+# The values read from addresses rotated by 2 positions a lane: a lane's
+# 4-byte word moves one bank a lane, so lanes that stand at one position of
+# their blocks meet 32 different banks (timing only: wrong values).
+ROTATED = [("  int32_t v = blk[p & 63];\n", "  int32_t v = blk[(p + 2 * (threadIdx.x & 31)) & 63];\n"),
+           ("    const int32_t v_next = blk[next & 63];\n",
+            "    const int32_t v_next = blk[(next + 2 * (threadIdx.x & 31)) & 63];\n")]
 CUT = {  # variant: [(text in the source, its replacement)]
     "whole kernel": [],
-    "staged loads only": [(CALL, "zrl += static_cast<int>(stage[at * kBlockElems]) + prev;")],
-    "loads and masks": [
-        ("  count_ac<T>(blk, mask, ac_hist, zrl);",
-         "  zrl += static_cast<int>(mask ^ (mask >> 32));")],
-    "no AC atomics": [(AC_ATOMIC, "    zrl += ((run & 15) << 4) | coef_bits<T>(v);")],
+    "staged loads only": [(MASK, "      if (valid) dc = stage[at * kBlockElems + lane % 8];\n"),
+                          (CALL, "zrl += diff;")],
+    "loads and masks": [(CALL, "zrl += static_cast<int>(mask ^ (mask >> 32)) + diff;")],
+    "no AC atomics": [(AC_ATOMIC, NO_AC_ATOMIC)],
     "walk and atomics, no symbols": [(AC_ATOMIC, "    atomicAdd(&ac_hist[p], 1);")],
+    "conflict-free gather": ROTATED,
+    "conflict-free gather, no AC atomics": ROTATED + [(AC_ATOMIC, NO_AC_ATOMIC)],
     "2 stages": [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
     "4 stages": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
 }
 EXACT = {"whole kernel", "2 stages", "4 stages"}  # variants that keep the result
-# The consumers' clock: cycles waiting for a stage and counting its block,
-# summed over the consumer threads into a __device__ array that
-# jpx_cycles reads back (clock64 per SM; a lane's count includes the time
-# its warp spends on the other lanes' non-zeros).
+# The consumers' clock: cycles waiting for a stage, and from its arrival to
+# the warp's release of it, summed over the consumer threads into a
+# __device__ array that jpx_cycles reads back (clock64 per SM; a lane's
+# count includes the time its warp spends on the other lanes' blocks).
 CYCLES = [
     ("namespace {\n", "namespace {\n__device__ unsigned long long g_cycles[4];\n"),
     ("    int eob = 0;\n",
@@ -74,10 +98,10 @@ CYCLES = [
      "    const long long loop_start = clock64();\n"),
     ("      mbar_wait(&full[s], (i / kStages) & 1);\n",
      "      const long long c0 = clock64();\n      mbar_wait(&full[s], (i / kStages) & 1);\n"
-     "      wait_cycles += clock64() - c0;\n"),
-    ("        " + CALL + "\n",
-     "        const long long c1 = clock64();\n        " + CALL + "\n"
-     "        count_cycles += clock64() - c1;\n"),
+     "      const long long c1 = clock64();\n      wait_cycles += c1 - c0;\n"),
+    ("      __syncwarp();\n      if (lane == 0) mbar_arrive(&empty[s]);\n",
+     "      __syncwarp();\n      count_cycles += clock64() - c1;\n"
+     "      if (lane == 0) mbar_arrive(&empty[s]);\n"),
     ("    zrl = __reduce_add_sync(0xFFFFFFFFu, zrl);\n",
      "    atomicAdd(&g_cycles[0], static_cast<unsigned long long>(wait_cycles));\n"
      "    atomicAdd(&g_cycles[1], static_cast<unsigned long long>(count_cycles));\n"
@@ -93,6 +117,13 @@ extern "C" int jpx_cycles_clear() {
   void* a;
   cudaError_t err = cudaGetSymbolAddress(&a, g_cycles);
   return (int)(err != cudaSuccess ? err : cudaMemset(a, 0, sizeof(g_cycles)));
+}
+extern "C" int jpx_consumers_per_sm(int* n) {
+  int ctas = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, symbol_hist_kernel<int16_t>, kThreads, smem_bytes<int16_t>());
+  *n = ctas * kTileBlocks;
+  return (int)err;
 }
 """
 # A yardstick of the read alone: every 16 bytes of one or two ranges loaded
@@ -125,28 +156,8 @@ extern "C" int jpx_read_all(const void* a, int64_t na, const void* b, int64_t nb
 """
 READ_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
              ctypes.c_void_p]
-OLD_CALL = ("count_part(blocks, n_valid, prev_dc, t[k], lane, v[k], mask, dc_below, n_cols, rows,\n"
-            "                   s_hist[warp], s_hist[warp] + 256);")
-OLD_CUT = {
-    "whole kernel": [],
-    "loads only": [(OLD_CALL, 'asm volatile("" ::"r"(v[k][0] | v[k][1] | v[k][2] | v[k][3] | '
-                              'v[k][4] | v[k][5] | v[k][6] | v[k][7]));')],
-    "loads and masks": [(OLD_CALL, 'asm volatile("" ::"l"(mask), "r"(dc_below));')],
-    "no atomics": [
-        ("    atomicAdd(&dc_hist[bit_count(diff)], 1);",
-         '    asm volatile("" ::"r"(bit_count(diff)));'),
-        ("    atomicAdd(&ac_hist[((run & 15) << 4) | coef_bits<T>(v[j])], 1);",
-         '    asm volatile("" ::"r"(((run & 15) << 4) | coef_bits<T>(v[j])));'),
-        ("    if (run >= 16) atomicAdd(&ac_hist[0xF0], run >> 4);",
-         '    if (run >= 16) asm volatile("" ::"r"(run >> 4));'),
-        ("  if (part == 7 && v[7] == 0) atomicAdd(&ac_hist[0], 1);  // EOB",
-         '  if (part == 7 && v[7] == 0) asm volatile("" ::"r"(part));  // EOB')],
-    "loads and atomics only": [
-        (OLD_CALL, "for (int j = 0; j < 8; ++j) {\n"
-                   "          if (v[k][j] != 0) atomicAdd(&s_hist[warp][256 + (v[k][j] & 255)], 1);\n"
-                   "        }")],
-}
-OLD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
+CELLS = ("recompress_16mp_b4", "recompress_imagenet_b256", "recompress_ct12_b512",
+         "recompress_24mp_422_b4")
 
 
 def variant_source(subs, text=None):
@@ -206,18 +217,6 @@ def call_read(lib, planes, out):
         raise SystemExit(f"k5_probe: launch failed with CUDA error {err}")
 
 
-def call_old(lib, flat):
-    """The previous design on [R, N, 64] blocks in walk order."""
-    fn = lib.jpx_symbol_histograms_i16
-    fn.argtypes = OLD_ARGS
-    out = torch.zeros((2, 256), dtype=torch.int32, device=flat.device)
-    err = fn(flat.data_ptr(), None, None, flat.shape[0], flat.shape[1], out.data_ptr(),
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise SystemExit(f"k5_probe: launch failed with CUDA error {err}")
-    return out
-
-
 def step_planes(dev):
     """full_step's requantised planes of chip_smoke.py's 8 images."""
     from jpeglibrary_tpu_torch.parallel import sharding
@@ -230,23 +229,39 @@ def step_planes(dev):
     return requant
 
 
+def cell_planes(name, seed, dev):
+    """The planes K5 counts in one step of the benchmark cell ``name`` on its
+    first pool batch from ``seed``: a list of (planes, mcu)."""
+    from jpegbench.core import spec
+    from jpeglibrary_tpu_torch.parallel import sharding
+
+    workload = spec.load(name)
+    run = workload.entry().Run(workload, seed, dev, None)
+    batch = run._batch(torch.Generator(device=dev).manual_seed(seed))
+    if workload.traffic["entry"] == "recompress_gray12":
+        _, requant, _ = sharding.gray_step(batch, run.q, precision=run.bits, device=dev)
+        return [((requant,), (1, 1))]
+    _, (y, cb, cr), _ = sharding._step(*sharding._step_inputs(*batch, run.qy, run.qc, dev))
+    return [((y,), (y.shape[2] // cb.shape[2], y.shape[1] // cb.shape[1])), ((cb, cr), (1, 1))]
+
+
 def sources(old_text=None):
     """The variants' sources by name: this kernel's cuts ("new/..."), the
-    read yardstick and, given the previous design's text, its cuts
-    ("old/...")."""
+    read yardstick, the clock and, given another source of the kernel, that
+    source whole and under the clock ("old/...")."""
     out = {f"new/{name}": variant_source(subs) for name, subs in CUT.items()}
     out["read yardstick"] = READ_SOURCE
     out["clock/whole kernel"] = variant_source(CYCLES) + CYCLES_READ
-
     if old_text is not None:
-        out.update({f"old/{name}": variant_source(subs, old_text)
-                    for name, subs in OLD_CUT.items()})
+        out["old/whole kernel"] = old_text
+        out["clock/old whole kernel"] = variant_source(CYCLES, old_text) + CYCLES_READ
     return out
 
 
 def cycles(lib, planes, mcu, flush):
     """The consumers' mean cycles (waiting for stages, counting, in all)
-    in one L2-flushed call of a clock variant."""
+    in one L2-flushed call of a clock variant, their sum over the counting,
+    and the CTAs an SM holds."""
     host = np.zeros(4, np.uint64)
     lib.jpx_cycles.argtypes = [ctypes.c_void_p]
     lib.jpx_cycles_clear()
@@ -255,35 +270,42 @@ def cycles(lib, planes, mcu, flush):
     torch.cuda.synchronize()
     if lib.jpx_cycles(host.ctypes.data):
         raise SystemExit("k5_probe: could not read the cycles")
+    consumers = ctypes.c_int(0)
+    if lib.jpx_consumers_per_sm(ctypes.byref(consumers)):
+        raise SystemExit("k5_probe: could not read the consumer threads an SM holds")
     wait, count, total, threads = (float(x) for x in host)
-    return wait / threads, count / threads, total / threads
+    return wait / threads, count / threads, total / threads, count, consumers.value
 
 
 def time_parts(libs, label, planes, mcu, flush, modes=("warm", "L2 flushed")):
     """Each variant of ``libs`` on ``planes`` (walked at ``mcu``), the read
-    yardstick and a torch copy of the planes, in CUDA events; each whole
-    kernel first held to the plain version (0 bins may differ). Prints a
+    yardstick and a torch copy of the planes, in CUDA events; each exact
+    variant first held to the plain version (0 bins may differ). Prints a
     line a variant and mode; returns {(mode, name): ms}."""
     dev = planes[0].device
     flat = encode_stage.mcu_walk(planes, mcu).contiguous()
     want = torch.stack(encode_stage.symbol_histograms_plain(flat))
+    n_blocks = sum(p.numel() for p in planes) // 64
+    symbols = sum(int((p[..., 1:] != 0).sum()) for p in planes)
+    print(f"input: {label}: {n_blocks} blocks, {symbols / n_blocks:.3f} non-zero AC "
+          "coefficients a block")
     names, fns = [], []
     sink = torch.zeros(1, dtype=torch.int32, device=dev)
     for name, lib in libs.items():
         if name.startswith("clock/"):
-            wait, count, total = cycles(lib, planes, mcu, flush)
+            wait, count, total, summed, consumers = cycles(lib, planes, mcu, flush)
+            per_symbol = summed / max(symbols, 1)
             print(f"cycles: {label}, L2 flushed: {name[6:]}: a consumer thread waits "
                   f"{wait:.0f} cycles for its stages and counts for {count:.0f}, of {total:.0f} "
-                  f"in its loop (clock64, mean over the consumer threads)")
+                  f"in its loop (clock64, mean over the consumer threads); the count's cycles "
+                  f"per AC symbol {per_symbol:.1f} a thread, "
+                  f"{per_symbol / consumers:.3f} an SM ({consumers} consumer threads an SM)")
             continue
         if name == "read yardstick":
             names.append("read yardstick (each byte loaded once, no shared memory)")
             fns.append(lambda lib=lib: call_read(lib, planes, sink))
             continue
-        if name.startswith("new/"):
-            fn = (lambda lib=lib: call_new(lib, planes, mcu))
-        else:
-            fn = (lambda lib=lib: call_old(lib, flat))
+        fn = (lambda lib=lib: call_new(lib, planes, mcu))
         if name.split("/")[1] in EXACT:
             n_diff = int((fn() != want).sum())
             print(f"check: {label}: {name}: {n_diff}/512 bins differ from the plain version")
@@ -294,7 +316,7 @@ def time_parts(libs, label, planes, mcu, flush, modes=("warm", "L2 flushed")):
     copies = [torch.empty_like(p) for p in planes]
     names.append("torch copy of the same planes")
     fns.append(lambda: [c.copy_(p) for c, p in zip(copies, planes)])
-    b_ms, b_by = chip_smoke.k5_bound(sum(p.numel() for p in planes) // 64, 2)
+    b_ms, b_by = chip_smoke.k5_bound(n_blocks, 2)
     out = {}
     for what in modes:
         kwargs = {"flush": flush} if what == "L2 flushed" else {}
@@ -309,7 +331,9 @@ def time_parts(libs, label, planes, mcu, flush, modes=("warm", "L2 flushed")):
 def main(argv=None):
     parser = argparse.ArgumentParser(description="K5's parts, timed on one GPU.")
     parser.add_argument("--old", type=pathlib.Path,
-                        help="also time this source of the kernel's previous design")
+                        help="also time this source of the kernel (the same C entry points)")
+    parser.add_argument("--seed", type=int, default=25,
+                        help="the seed of the cells' pool batches")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("k5_probe: no CUDA device; nothing was run", file=sys.stderr)
@@ -322,10 +346,10 @@ def main(argv=None):
     inputs = [("luma [8, 256, 256, 64] int16, MCU (2, 2)", (requant_y,), (2, 2)),
               ("chroma 2 x [8, 128, 128, 64] int16", (requant_cb, requant_cr), (1, 1)),
               ("all-zero luma [8, 256, 256, 64] int16", (torch.zeros_like(requant_y),), (2, 2))]
-    for label, planes, _ in inputs[:2]:
-        n_blocks = sum(p.numel() for p in planes) // 64
-        nz = sum(int((p[..., 1:] != 0).sum()) for p in planes)
-        print(f"input: {label}: {nz / n_blocks:.3f} non-zero AC coefficients a block")
+    for cell in CELLS:
+        for planes, mcu in cell_planes(cell, args.seed, dev):
+            shape = list(planes[0].shape)
+            inputs.append((f"{cell}: {len(planes)} x {shape} int16, MCU {mcu}", planes, mcu))
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(sources(None if args.old is None else args.old.read_text()),
                      pathlib.Path(tmp))
