@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase full_step     # the full step (K5's times and parts) alone
     python3 chip_smoke.py --phase color_round_trip  # K6 alone
     python3 chip_smoke.py --phase gray_step     # the 12-bit one-component step alone
+    python3 chip_smoke.py --phase progressive_step  # K7, the transcode's count pass, alone
 
 Drives the port's main paths on the card at the size users run: the
 serving decode, a stream of 8 distinct 2048x2048 q75 4:2:0 baseline
@@ -175,6 +176,20 @@ layer in spawned ranks. In order:
    against their bounds (2 B in and 2 B out a sample for K1 and K2, 6 B a
    sample for the step).
    ``--phase gray_step`` runs this phase alone after the build;
+15d. progressive step: K7 (``kernels.progressive_histograms``,
+   ``csrc/progressive_hist.cu``), the per-image symbol statistics of
+   libjpeg's 10-scan progressive script, against its plain version
+   (``encode_stage.progressive_histograms_plain``, image by image), 0 bins
+   differing, at PROG_CELL (the benchmark's transcode cell: 32 photo images
+   of 4032 x 3024 at q90 from the benchmark's generators), on the same
+   batch with its luma flat (EOB runs of 190,512 blocks, past 0x7FFF) and
+   at the ragged PROG_RAGGED; ``progressive_step`` on the cell's batch
+   with 1 launch a component and 1 of the EOB runs' stitch, counted from
+   0; K7 timed in CUDA events, L2 flushed and warm, against its bound (one
+   read of the int16 blocks, 128 B a block, and the [B, 11, 256] int32
+   histograms' write), beside the plain version and one library read of
+   the blocks (``torch.count_nonzero``).
+   ``--phase progressive_step`` runs this phase alone after the build;
 16. mesh: the mesh layer (``parallel/sharding.py``, ``parallel/distributed.py``
    over ``torch.distributed``) in ranks spawned from here after the build,
    each rank holding each path to its single-device counterpart on the card
@@ -212,7 +227,7 @@ kernels (K1, one entry per K1 variant, K2, one entry per K2 box of 9,
 K3 at each restart interval and on the small ri 0 stream, the K1 and K2
 calls of ``full_step``, K4, K5 on ``full_step``'s luma, and K6 at the
 16.8 MP cell's shape and at the 24 MP 4:2:2 cell's, K1's plane store, K2's uint16 load and K5 of
-``gray_step`` at the CT cell's: launches on the main paths, kernel
+``gray_step`` at the CT cell's, K7 at the transcode cell's: launches on the main paths, kernel
 time, plain and library time, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result. Imports neither JAX nor PIL, and
@@ -252,6 +267,9 @@ K5_SOURCE = "jpeglibrary_tpu_torch/csrc/symbol_hist.cu"
 K5_REPLACES = "jpeglibrary_tpu/ops/encode_stage.py:330"  # symbol_histograms_device: XLA, not Pallas
 K6_SOURCE = "jpeglibrary_tpu_torch/csrc/color_round_trip.cu"
 K6_REPLACES = "jpeglibrary_tpu/parallel/sharding.py:70"  # full_step's colour ops: XLA, no kernel
+K7_SOURCE = "jpeglibrary_tpu_torch/csrc/progressive_hist.cu"
+# progressive pass 1, the native emitter's count mode on the host: no device code
+K7_REPLACES = "jpeglibrary_tpu/models/progressive_encoder.py:292"
 # K6's shapes (batch, luma block rows, luma block columns, the chroma's vs):
 # at 4:2:0 the benchmark's two 4:2:0 cells, and MCU rows of 33 and 13 MCUs,
 # whose last strip is ragged; at 4:2:2 the 24 MP cell's (MCU rows of 375
@@ -273,6 +291,13 @@ K4_OPS_PER_BLOCK = 16 * 44 + 64 * 5
 # cell's series of 512 slices of 512 x 512, and two ragged grids.
 GRAY_SHAPES = ((512, 64, 64), (3, 5, 7), (2, 13, 33))
 GRAY_SHARE = 1e-3  # samples and blocks within 1 of the plain step on at most this share
+# progressive_step's batches (images, height, width): the benchmark's
+# transcode cell (32 phone photos of 4032 x 3024, 4:2:0, q90) and a ragged
+# size whose luma grid is smaller than its padded plane.
+PROG_CELL = (32, 3024, 4032)
+PROG_RAGGED = (4, 2999, 4001)
+PROG_QUALITY = 90
+PROG_CHUNK = 4  # images of content made at a time
 GOLDEN_RECTS = ((136, 264, 640, 480), (1, 1031, 2047, 17))  # (x, y, w, h) regions
 # The device scan's restart intervals, in MCUs per segment: one MCU row of a
 # 2048x2048 4:2:0 image (128 segments), 16 (1,024) and 4 (4,096); and a
@@ -450,6 +475,8 @@ def reset_counts():
     kernels.color_round_trip.launches = 0
     kernels.color_round_trip.launches_by_box.clear()
     kernels.dequantize_idct_plane.launches = 0
+    kernels.progressive_histograms.launches = 0
+    kernels.progressive_histograms.launches_by_walk.clear()
 
 
 def check_close(got, want, what, share=1e-4):
@@ -2508,6 +2535,139 @@ def phase_gray_step(dev):
                    worst["histograms"], *calls["K5"][2], launches[2])]
 
 
+def prog_photo_planes(b, height, width, dev, seed):
+    """The transcode cell's content: ``b`` photo-like images from the
+    benchmark's generators (``content.photo``, ``coefficients.
+    quantised_planes``) at :data:`PROG_QUALITY`, made on ``dev`` a few at a
+    time; int16 (y, cb, cr) zig-zag planes padded to whole MCUs."""
+    from jpegbench.generators import coefficients, content
+    from jpegbench.reference.tables import quant_tables_zz
+
+    qy, qc = (torch.from_numpy(q).to(dev) for q in quant_tables_zz(PROG_QUALITY))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    parts = [coefficients.quantised_planes(content.photo(g, min(PROG_CHUNK, b - i), height,
+                                                         width), qy, qc)
+             for i in range(0, b, PROG_CHUNK)]
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def prog_random_planes(b, height, width, dev, seed, density=0.3):
+    """Random 4:2:0 int16 planes padded to whole MCUs: a share ``density``
+    of the AC coefficients non-zero, magnitudes falling with the zig-zag
+    position, both signs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hb, wb = 2 * -(-height // 16), 2 * -(-width // 16)
+    decay = torch.exp(-torch.arange(64, device=dev) / 16.0) * 12
+    out = []
+    for shape in ((b, hb, wb, 64), (b, hb // 2, wb // 2, 64), (b, hb // 2, wb // 2, 64)):
+        x = torch.randn(shape, generator=g, device=dev) * decay
+        keep = torch.rand(shape, generator=g, device=dev) < density
+        keep[..., 0] = True
+        out.append((x * keep).round().clamp(-2047, 2047).to(torch.int16))
+    return out
+
+
+def prog_bins_off(planes, size, script, what):
+    """K7's wrapper against its plain version, image by image (the plain
+    version's int64 temporaries of a whole cell batch would not fit
+    beside it): checks 0 bins differing and returns K7's histograms."""
+    from jpeglibrary_tpu_torch.ops import encode_stage, kernels
+
+    got = kernels.progressive_histograms(*planes, script, size=size)
+    n_diff = 0
+    for i in range(got.shape[0]):
+        want = encode_stage.progressive_histograms_plain(*(p[i:i + 1] for p in planes), script,
+                                                         size=size)
+        n_diff += int((got[i:i + 1] != want).sum())
+    torch.cuda.synchronize()
+    log(f"K7 {what}: {n_diff} of {got.numel()} bins differ from the plain version; "
+        f"{int(got.sum())} symbols, {int(got[..., 0xE0].sum())} runs of 0x7FFF blocks")
+    check(n_diff == 0 and got.dtype == torch.int32, ("K7 differs", what, n_diff))
+    return got, n_diff
+
+
+def phase_progressive_step(dev):
+    """K7 (``kernels.progressive_histograms``) against its plain version,
+    0 bins differing: on the transcode cell's batch of photo content, on
+    the same shape with a flat luma (EOB runs past 0x7FFF blocks, split and
+    stitched at the card's full width) and at a ragged size; one
+    ``progressive_step`` on the cell's batch with its launches counted from
+    0 (y, cb, cr, eobrun 1 each); K7 timed in CUDA events, L2 flushed and
+    warm, against its bound (one read of the int16 blocks and the
+    histograms' write), beside the plain version image by image and one
+    library read of the same blocks (``torch.count_nonzero``). Returns K7's
+    record."""
+    from jpeglibrary_tpu_torch.host.models.progressive_encoder import SCRIPT_3
+    from jpeglibrary_tpu_torch.ops import encode_stage, kernels
+    from jpeglibrary_tpu_torch.parallel import sharding
+
+    b, height, width = PROG_CELL
+    size = (height, width)
+    t0 = time.perf_counter()
+    planes = prog_photo_planes(b, height, width, dev, seed=90)
+    nonzero = (sum(int((p[..., 1:] != 0).sum()) for p in planes)
+               / sum(p[..., 0].numel() for p in planes))
+    log(f"progressive step: {b} photo images of {width} x {height} at q{PROG_QUALITY}, "
+        f"luma {tuple(planes[0].shape)}, chroma {tuple(planes[1].shape)}, made in "
+        f"{time.perf_counter() - t0:.3f} s; {nonzero:.3f} non-zero AC coefficients a block")
+    _, worst = prog_bins_off(planes, size, SCRIPT_3, f"cell batch {b} x {width} x {height}")
+
+    flat = [planes[0].clone(), planes[1], planes[2]]
+    flat[0][..., 1:] = 0
+    got, n_diff = prog_bins_off(flat, size, SCRIPT_3, "cell batch, flat luma")
+    worst = max(worst, n_diff)
+    n_grid = -(-height // 8) * -(-width // 8)
+    long_runs = int(got[:, 3:, 0xE0].sum())  # the AC rows; the luma's runs pass 0x7FFF
+    log(f"K7 flat luma: {n_grid} luma blocks an image, {long_runs} runs of 0x7FFF blocks")
+    check(n_grid <= 0x7FFF or long_runs > 0, ("K7 flat luma: no run past 0x7FFF", long_runs))
+    del flat, got
+
+    rb, rh, rw = PROG_RAGGED
+    ragged = prog_random_planes(rb, rh, rw, dev, seed=91)
+    _, n_diff = prog_bins_off(ragged, (rh, rw), SCRIPT_3, f"ragged {rb} x {rw} x {rh}")
+    worst = max(worst, n_diff)
+    del ragged
+
+    reset_counts()
+    out = sharding.progressive_step(*planes, size=size, device=dev)
+    torch.cuda.synchronize()
+    launches = kernels.progressive_histograms.launches
+    by_walk = dict(kernels.progressive_histograms.launches_by_walk)
+    log(f"progressive_step launches: {launches}, by walk {by_walk}; "
+        f"histograms {tuple(out.shape)}")
+    check(launches == 4 and by_walk == {"y": 1, "cb": 1, "cr": 1, "eobrun": 1},
+          ("progressive_step launches", launches, by_walk))
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    n_blocks = sum(p.shape[0] * p.shape[1] * p.shape[2] for p in planes)
+    b_ms, b_by = bound(n_blocks * 128 + out.numel() * 4, 0, 0)
+
+    def k7():
+        return kernels.progressive_histograms(*planes, SCRIPT_3, size=size)
+
+    def library():
+        return [torch.count_nonzero(p) for p in planes]
+
+    def plain():
+        return [encode_stage.progressive_histograms_plain(*(p[i:i + 1] for p in planes),
+                                                          SCRIPT_3, size=size)
+                for i in range(b)]
+
+    k_ms, lib_ms = device_ms(k7, library, flush=flush)
+    warm = device_ms(k7)[0]
+    p_ms = device_ms(plain, runs=3, warmup=1, flush=flush)[0]
+    log(f"K7 at the cell's batch: {k_ms:.6f} ms flushed ({b_ms / k_ms:.1%} of its {b_by} "
+        f"bound {b_ms:.6f} ms, {n_blocks * 128 / k_ms / 1e9:.3f} TB/s of blocks), "
+        f"{warm:.6f} ms warm; one library read of the blocks {lib_ms:.6f} ms, the plain "
+        f"version image by image {p_ms:.6f} ms (CUDA events, L2 flushed, median of "
+        f"{TIMED_RUNS} in turns, the plain of 3)")
+    del flush, planes, out
+    return {"name": "progressive_histograms[progressive_step]", "route": "cuda",
+            "source": K7_SOURCE, "replaces": K7_REPLACES, "launches": launches,
+            "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
 MESH_TIMEOUT_S = 180  # each world's own limit; a hung rendezvous fails the phase
 MESH_DEVICE = "cuda"  # the ranks' device type ("cpu" only to rehearse the phase's code)
 MESH_RUNS = 5  # host-clock runs of each timed mesh path, after one warm-up
@@ -2907,9 +3067,11 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     parser.add_argument("--phase", choices=("all", "device_scan", "full_step",
-                                            "color_round_trip", "gray_step"), default="all",
+                                            "color_round_trip", "gray_step", "progressive_step"),
+                        default="all",
                         help="run every phase (the default), or the device scan, the full-step, "
-                             "the colour round trip or the gray step phase alone")
+                             "the colour round trip, the gray step or the progressive step "
+                             "phase alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2925,6 +3087,8 @@ def main(argv=None):
         kernel_records = phase_color_round_trip(dev)
     elif args.phase == "gray_step":
         kernel_records = phase_gray_step(dev)
+    elif args.phase == "progressive_step":
+        kernel_records = [phase_progressive_step(dev)]
     else:
         kernel_records = run_all(dev)
     print(json.dumps({"kernels": kernel_records}))
@@ -2954,6 +3118,7 @@ def run_all(dev):
     k6_launches_422 = phase_full_step_422(inputs, dev)
     records_k6 = phase_color_round_trip(dev, (k6_launches, k6_launches_422))
     gray_records = phase_gray_step(dev)
+    record_k7 = phase_progressive_step(dev)
     phase_mesh(sl)
     record_k4 = phase_golden(sl, dev)
     log("stream MP/s by (group, device_workers): "
@@ -2963,7 +3128,7 @@ def run_all(dev):
         f"CMYK path {cmyk_launches}, full_step {step_records['k2']['launches']}; K5 on "
         f"full_step {step_records['k5']['launches']}")
     return [*records.values(), record_k2, *box_records.values(), *scan_records.values(),
-            *step_records.values(), *records_k6, *gray_records, record_k4]
+            *step_records.values(), *records_k6, *gray_records, record_k7, record_k4]
 
 
 if __name__ == "__main__":

@@ -154,6 +154,7 @@ def encode_progressive(
     precision: int = 8,
     restart_interval: int = 0,
     differential: bool = False,
+    device=None,
 ) -> bytes:
     """Core progressive encode: sample planes -> SOF2 (Huffman) or
     SOF10 (arithmetic QM coder) stream.
@@ -175,6 +176,11 @@ def encode_progressive(
     predictors, EOB runs, refinement correction bits, QM registers and
     statistics — resets per segment, so segments are independent and
     the framework's progressive scanners decode them in parallel.
+
+    ``device`` (a ``torch.device``; Huffman coding, no restart intervals)
+    runs pass 1, the symbol count, on that device: the per-image rows of
+    ``parallel.sharding.progressive_step`` (K7 on the card), summed per
+    table class; the tables and the bytes are the host count's.
     """
     from ..native import scanner as native_scanner
 
@@ -289,7 +295,7 @@ def encode_progressive(
 
         dc_freqs = {tid: np.zeros(256, dtype=np.int64) for tid in set(table_ids)}
         ac_freqs = {tid: np.zeros(256, dtype=np.int64) for tid in set(table_ids)}
-        count_jobs = list(script)
+        count_jobs = list(script) if device is None else []
 
         def count_one(entry):
             local_dc = {tid: np.zeros(256, dtype=np.int64) for tid in dc_freqs}
@@ -305,6 +311,13 @@ def encode_progressive(
             for tid in dc_freqs:
                 dc_freqs[tid] += local_dc[tid]
                 ac_freqs[tid] += local_ac[tid]
+        if device is not None:
+            if restart_interval > 0:
+                raise ValueError("the device count takes no restart intervals")
+            from .progressive_count import progressive_frequencies
+
+            progressive_frequencies(coeffs, (h, w), sampling, script, table_ids,
+                                    dc_freqs, ac_freqs, device=device)
 
         for tid, freq in dc_freqs.items():
             if freq.sum() > 0:

@@ -41,6 +41,7 @@ def transcode(
     restart_interval: int = 0,
     predictor: Optional[int] = None,
     grayscale: bool = False,
+    device=None,
 ) -> bytes:
     """Re-encode a JPEG losslessly with a different entropy coding.
 
@@ -60,10 +61,16 @@ def transcode(
     An Adobe APP14 tag on the input is copied into the output verbatim
     (like jpegtran): the tag changes the stream's color interpretation
     (RGB / CMYK / YCCK), so dropping it would alter decoded colors.
+
+    ``device`` (a ``torch.device``, mode "progressive" alone) counts the
+    progressive script's symbols there (``encode_progressive``'s
+    ``device``); the output is the same bytes.
     """
+    if device is not None and mode != "progressive":
+        raise ValueError(f"mode {mode!r} has no device count; device= is for 'progressive'")
     out = _transcode_inner(
         data, mode, restart_interval=restart_interval, predictor=predictor,
-        grayscale=grayscale,
+        grayscale=grayscale, device=device,
     )
     if grayscale:
         return out  # single-component: no color tag to preserve
@@ -77,6 +84,7 @@ def _transcode_inner(
     restart_interval: int = 0,
     predictor: Optional[int] = None,
     grayscale: bool = False,
+    device=None,
 ) -> bytes:
     dec = JpegDecoder()
     dec.set_input(data)
@@ -215,11 +223,12 @@ def _transcode_inner(
         restart_interval=restart_interval,
         size=(frame.number_of_lines, frame.samples_per_line),
         precision=frame.sample_precision,
+        device=device,
     )
 
 
 def _emit_dct(coeffs, qts, sampling, quant_ids, comp_ids, mode, *,
-              restart_interval, size, precision):
+              restart_interval, size, precision, device=None):
     """Emit zig-zag coefficient planes as a JPEG with the requested
     entropy coding (the shared transcode/transform back end)."""
     n_comps = len(coeffs)
@@ -251,6 +260,7 @@ def _emit_dct(coeffs, qts, sampling, quant_ids, comp_ids, mode, *,
             coefficients=coeffs,
             size=size,
             precision=precision,
+            device=device,
         )
 
     from .encoder import JpegEncoder

@@ -113,6 +113,26 @@ _K6_ARGS = [
     ctypes.c_void_p,                   # constants (host)
     ctypes.c_void_p,                   # cudaStream_t
 ]
+_K7_ARGS = [
+    ctypes.c_void_p,                   # plane
+    ctypes.c_int64, ctypes.c_int64,    # batch, height_blocks
+    ctypes.c_int64,                    # width_blocks
+    ctypes.c_int64, ctypes.c_int64,    # the AC grid's rows, cols
+    ctypes.c_int, ctypes.c_int,        # the DC walk's MCU h, v
+    ctypes.c_int, ctypes.c_int,        # the DC first scan's Al, row (-1: none)
+    ctypes.c_int, ctypes.c_void_p,     # AC scans, their (ss, se, ah, al, row) (host)
+    ctypes.c_int,                      # rows of the output
+    ctypes.c_void_p, ctypes.c_void_p,  # summaries, out
+    ctypes.c_void_p,                   # cudaStream_t
+]
+_K7_STITCH_ARGS = [
+    ctypes.c_int, ctypes.c_void_p,     # components, their summaries (host)
+    ctypes.c_void_p, ctypes.c_void_p,  # segments a chain, AC scans (host)
+    ctypes.c_void_p,                   # each AC scan's output row (host)
+    ctypes.c_int64, ctypes.c_int,      # batch, rows of the output
+    ctypes.c_void_p,                   # out
+    ctypes.c_void_p,                   # cudaStream_t
+]
 _ENTRY_POINTS = {
     "jpx_dequant_idct_i32": _K1_ARGS,
     "jpx_dequant_idct_i16": _K1_ARGS,
@@ -128,6 +148,8 @@ _ENTRY_POINTS = {
     "jpx_symbol_histograms_i16": _K5_ARGS,
     "jpx_symbol_histograms_i32": _K5_ARGS,
     "jpx_color_round_trip": _K6_ARGS,
+    "jpx_progressive_histograms": _K7_ARGS,
+    "jpx_progressive_eobrun": _K7_STITCH_ARGS,
 }
 
 

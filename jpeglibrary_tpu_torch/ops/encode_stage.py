@@ -25,7 +25,8 @@ kernel's per-block arithmetic.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -385,3 +386,188 @@ def symbol_histograms_model(blocks, n_valid: Optional[torch.Tensor] = None,
     ac_freq[0xF0] += (runs[take] >> 4).sum()
     ac_freq[0] += eob.sum()
     return dc_freq.to(torch.int32), ac_freq.to(torch.int32)
+
+
+# K7: the symbol statistics of a progressive scan script, per image.
+
+MAX_AC_SCANS = 8  # AC scans of one component that K7 counts in one pass
+MAX_EOB_RUN = 0x7FFF  # an EOB run codes at most this many blocks (T.81 G.1.2.2)
+
+
+class ComponentPlan(NamedTuple):
+    """What K7 counts for one component: its DC first scan as (Al, row),
+    or None, and its AC scans as (Ss, Se, Ah, Al, row), in script order;
+    ``row`` is the scan's row in the output."""
+
+    dc: Optional[Tuple[int, int]]
+    ac: Tuple[Tuple[int, int, int, int, int], ...]
+
+
+def progressive_plan(script, n_comps: int) -> Tuple[int, Tuple[ComponentPlan, ...]]:
+    """:func:`_progressive_plan` of ``script`` as tuples, worked out once
+    a script (a step calls it every time)."""
+    return _progressive_plan(tuple((tuple(comps), *rest) for comps, *rest in script), n_comps)
+
+
+@functools.lru_cache(maxsize=64)
+def _progressive_plan(script, n_comps: int) -> Tuple[int, Tuple[ComponentPlan, ...]]:
+    """(R, one :class:`ComponentPlan` a component) for a scan script of
+    ``(components, Ss, Se, Ah, Al)`` entries. The rows are the (scan,
+    component) pairs that code Huffman symbols, in script order: a DC
+    first scan gives one row a component, an AC scan one row, a DC
+    refinement (raw bits) none.
+
+    Raises ValueError for a script K7 does not count: an AC scan of more
+    than one component or outside [1, 63]; a refinement whose Ah is not
+    Al + 1; a component with two DC first scans or more than
+    :data:`MAX_AC_SCANS` AC scans; or a coefficient that could code two
+    symbols (two first scans over one position, two refinements of one
+    bit, or a refinement of a bit at or above its first scan's Al), as no
+    successive-approximation script does."""
+    dc: List[Optional[Tuple[int, int]]] = [None] * n_comps
+    ac: List[list] = [[] for _ in range(n_comps)]
+    r = 0
+    for comps, ss, se, ah, al in script:
+        comps = tuple(int(c) for c in comps)
+        if not comps or any(not 0 <= c < n_comps for c in comps):
+            raise ValueError(f"scan components {comps} outside the frame's {n_comps}")
+        if not 0 <= al <= 13 or ah not in (0, al + 1):
+            raise ValueError(f"Ah {ah}, Al {al}: K7 takes Ah = 0 or Al + 1, Al <= 13")
+        if ss == 0:
+            if se != 0:
+                raise ValueError(f"a scan of band [0, {se}] mixes DC and AC")
+            if ah == 0:
+                for c in comps:
+                    if dc[c] is not None:
+                        raise ValueError(f"component {c} has two DC first scans")
+                    dc[c] = (al, r)
+                    r += 1
+            continue
+        if len(comps) != 1 or not 1 <= ss <= se <= 63:
+            raise ValueError(f"an AC scan is one component over [1, 63]: {comps}, [{ss}, {se}]")
+        (c,) = comps
+        if len(ac[c]) == MAX_AC_SCANS:
+            raise ValueError(f"component {c} has more than {MAX_AC_SCANS} AC scans")
+        ac[c].append((ss, se, ah, al, r))
+        r += 1
+    for c in range(n_comps):
+        for p in range(1, 64):
+            here = [s for s in ac[c] if s[0] <= p <= s[1]]
+            first = [s[3] for s in here if s[2] == 0]
+            refined = [s[3] for s in here if s[2] != 0]
+            if (len(first) > 1 or len(set(refined)) != len(refined)
+                    or any(first and al + 1 > first[0] for al in refined)):
+                raise ValueError(f"coefficient {p} of component {c} could code two symbols")
+    return r, tuple(ComponentPlan(d, tuple(a)) for d, a in zip(dc, ac))
+
+
+def progressive_sampling(y: torch.Tensor, cb: Optional[torch.Tensor],
+                         cr: Optional[torch.Tensor]) -> Tuple[Tuple[int, int], ...]:
+    """The components' (h, v) read from the planes' shapes: the luma alone
+    (1, 1); or the luma (hs, vs) and each chroma (1, 1), with the chroma
+    planes [B, Hb / vs, Wb / hs, 64], hs and vs 1 or 2 (4:4:4, 4:2:2,
+    4:4:0, 4:2:0). Raises ValueError for anything else."""
+    for name, x in (("y", y), ("cb", cb), ("cr", cr)):
+        if x is not None and (x.dim() != 4 or x.shape[-1] != 64):
+            raise ValueError(f"{name} must be a [B, Hb, Wb, 64] plane, got {tuple(x.shape)}")
+    if cb is None and cr is None:
+        return ((1, 1),)
+    if cb is None or cr is None or cb.shape != cr.shape:
+        raise ValueError("cb and cr must both be given, of one shape")
+    b, hb, wb = y.shape[:3]
+    for hs in (1, 2):
+        for vs in (1, 2):
+            if tuple(cb.shape[:3]) == (b, hb // vs, wb // hs) and hb % vs == 0 and wb % hs == 0:
+                return ((hs, vs), (1, 1), (1, 1))
+    raise ValueError(f"chroma {tuple(cb.shape)} is no 1x1 or 2x box of luma {tuple(y.shape)}")
+
+
+def progressive_grid(size: Tuple[int, int], sampling, c: int) -> Tuple[int, int]:
+    """(rows, columns) of component ``c``'s own block grid, the blocks its
+    AC scans walk in raster order: ``ceil(Yi / 8) x ceil(Xi / 8)`` for an
+    image of ``size`` = (height, width), as the host encoder forms it."""
+    height, width = size
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    h, v = sampling[c]
+    return -(-height // (8 * (vmax // v))), -(-width // (8 * (hmax // h)))
+
+
+def _bit_length(a: torch.Tensor) -> torch.Tensor:
+    """The bit length of each non-negative int64 (at most 2^31)."""
+    return torch.frexp(a.to(torch.float64))[1].to(torch.int64)
+
+
+def _add_eob_runs(hist: torch.Tensor, row: torch.Tensor, lengths: torch.Tensor) -> None:
+    """Count runs of ``lengths`` blocks into ``hist[row]``: ``L // 0x7FFF``
+    symbols 0xE0, then ``floor(log2(L % 0x7FFF)) << 4``."""
+    keep = lengths > 0
+    row, lengths = row[keep], lengths[keep]
+    hist[:, 0xE0].index_add_(0, row, lengths // MAX_EOB_RUN)
+    rest = lengths % MAX_EOB_RUN
+    keep = rest > 0
+    hist.index_put_((row[keep], (_bit_length(rest[keep]) - 1) << 4),
+                    torch.ones_like(rest[keep]), accumulate=True)
+
+
+def _plain_ac_scan(blocks: torch.Tensor, ss: int, se: int, ah: int, al: int,
+                   hist: torch.Tensor) -> None:
+    """One AC scan of a batch's component: ``blocks`` [B, N, 64] int64, each
+    image's blocks of the scan's grid in raster order; adds each image's
+    symbols into ``hist`` [B, 256]. The EOB runs are counted along each
+    image's whole chain: a coding block flushes the blocks that joined the
+    run since the coding block before it, and the image's end the rest."""
+    b = blocks.shape[0]
+    band = blocks[..., ss:se + 1]
+    width = band.shape[-1]
+    t = band.abs() >> al
+    coded = t != 0 if ah == 0 else t == 1
+    zero = t == 0
+    pos = torch.arange(width, device=blocks.device)
+    last = torch.cummax(torch.where(coded, pos, -1), dim=-1).values
+    prev = torch.cat([torch.full_like(last[..., :1], -1), last[..., :-1]], dim=-1)
+    zeros = torch.cumsum(zero.to(torch.int64), dim=-1)
+    zeros_at_prev = torch.where(prev >= 0, zeros.gather(-1, prev.clamp(min=0)), 0)
+    z = zeros - zero.to(torch.int64) - zeros_at_prev
+    size = _bit_length(t) if ah == 0 else torch.ones_like(t)
+    image = torch.arange(b, device=blocks.device).view(b, 1, 1).expand_as(coded)
+    hist.index_put_((image[coded], (z[coded] % 16) << 4 | size[coded]),
+                    torch.ones_like(z[coded]), accumulate=True)
+    hist[:, 0xF0] += torch.where(coded, z // 16, 0).flatten(1).sum(1)
+
+    joins = (last[..., -1] < width - 1).to(torch.int64)
+    # The joining blocks before each block, and in the whole chain as a last column.
+    before = torch.nn.functional.pad(torch.cumsum(joins, 1), (1, 0))
+    flush = torch.nn.functional.pad(coded.any(-1), (0, 1), value=True)
+    at_last_flush = torch.cummax(torch.where(flush, before, 0), 1).values
+    lengths = before - torch.nn.functional.pad(at_last_flush[:, :-1], (1, 0))
+    images = torch.arange(b, device=blocks.device).view(b, 1).expand_as(flush)
+    _add_eob_runs(hist, images[flush], lengths[flush])
+
+
+def progressive_histograms_plain(y: torch.Tensor, cb: Optional[torch.Tensor],
+                                 cr: Optional[torch.Tensor], script, *,
+                                 size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """K7's plain version: [B, R, 256] int32 symbol histograms of each image
+    of a batch under a progressive scan ``script``, in torch ops. Each DC
+    first scan walks its components' interleaved MCU chains over the
+    padded planes; each AC scan walks its component's own grid
+    (:func:`progressive_grid`) in raster order, its EOB runs counted along
+    the image's whole chain. Arguments as ``kernels.progressive_histograms``."""
+    planes = [p for p in (y, cb, cr) if p is not None]
+    sampling = progressive_sampling(y, cb, cr)
+    n_rows, plans = progressive_plan(script, len(planes))
+    b, hb, wb = y.shape[:3]
+    size = size or (8 * hb, 8 * wb)
+    out = torch.zeros((b, n_rows, 256), dtype=torch.int64, device=y.device)
+    for c, (plane, (h, v), plan) in enumerate(zip(planes, sampling, plans)):
+        if plan.dc is not None:
+            al, row = plan.dc
+            chain = mcu_walk(plane, (h, v))[..., 0].to(torch.int64) >> al
+            diff = chain - torch.nn.functional.pad(chain[:, :-1], (1, 0))
+            out[:, row].scatter_add_(1, _bit_length(diff.abs()), torch.ones_like(diff))
+        rows, cols = progressive_grid(size, sampling, c)
+        grid = plane[:, :rows, :cols].to(torch.int64).reshape(b, rows * cols, 64)
+        for ss, se, ah, al, row in plan.ac:
+            _plain_ac_scan(grid, ss, se, ah, al, out[:, row])
+    return out.to(torch.int32)

@@ -1,4 +1,4 @@
-"""The port's six kernels and their wrappers.
+"""The port's seven kernels and their wrappers.
 
 K1, the decode transform: dequantize + un-zigzag + 2-D IDCT + round +
 level shift over a batch of 8x8 blocks. Port of the decode half of
@@ -90,6 +90,18 @@ instantiation a sampling) for CUDA tensors and takes the plain version
 (``color.round_trip_plain``, the same chain in plain ops) only for CPU
 tensors; the two equal byte for byte.
 
+K7, the symbol statistics of a progressive scan script (libjpeg's
+``jpegtran -progressive`` script among them) per image: the DC first
+scans along each component's MCU chain, the AC first and refinement
+scans along its own block grid, with the EOB runs that cross blocks. It
+replaces no JAX code: the JAX package counts a progressive script on the
+host alone (the native emitter's count mode).
+:func:`progressive_histograms` launches ``csrc/progressive_hist.cu`` for
+CUDA tensors, one pass a component over its blocks for all its scans and
+one launch that stitches the EOB runs across the passes' segments, and
+takes the plain version (``encode_stage.progressive_histograms_plain``)
+only for CPU tensors; the counts equal bin for bin.
+
 Every wrapper checks its inputs, picks its route with :func:`_on_cuda`
 and launches through :func:`_launch`, the one place that loads the
 library, passes the device's current stream, checks the C entry's return
@@ -109,6 +121,7 @@ import torch
 from ..host.ops.decode_stage import fused_transform_matrix, scaled_folded_matrix
 from ..host.ops.encode_stage import fdct_zigzag_matrix
 from . import _build, color, decode_stage, device_scan, encode_stage
+from ._trace import span
 
 
 @functools.lru_cache(maxsize=16)
@@ -685,3 +698,93 @@ def color_round_trip(y_samples: torch.Tensor, cb_samples: torch.Tensor,
 
 color_round_trip.launches = 0
 color_round_trip.launches_by_box = {}
+
+
+COMPONENT_NAMES = ("y", "cb", "cr")  # K7's launches by component, and its stitch's "eobrun"
+EOB_SEGMENT = 32  # blocks of a row whose EOB runs one of K7's warps counts
+
+
+def progressive_histograms(y: torch.Tensor, cb: Optional[torch.Tensor],
+                           cr: Optional[torch.Tensor], script, *,
+                           size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """int16 zig-zag component planes of a batch -> [B, R, 256] int32
+    Huffman symbol histograms of each image under the progressive scan
+    ``script`` (``(components, Ss, Se, Ah, Al)`` entries, as
+    ``host.models.progressive_encoder.SCRIPT_3``): one row per (scan,
+    component) that codes symbols, in script order
+    (``encode_stage.progressive_plan``), each equal bin for bin to what the
+    host emitter counts for that scan of that image.
+
+    ``y`` [B, Hb, Wb, 64] and ``cb``, ``cr`` [B, Hb / vs, Wb / hs, 64]
+    (hs, vs 1 or 2; 4:2:0 at 2, 2), or ``cb`` and ``cr`` None for one
+    component: the MCU-padded planes of images of ``size`` = (height,
+    width) (the planes' full size when None). DC first scans walk each
+    component's interleaved MCU chain over the padded plane, AC scans its
+    own grid (``encode_stage.progressive_grid``) in raster order. No
+    restart intervals.
+
+    On CPU tensors it runs the plain version; on CUDA tensors it launches
+    ``csrc/progressive_hist.cu``: one pass a component (3 launches, 1 for
+    one component), then the EOB runs' stitch under the span
+    ``progressive_step.eobrun`` (1 launch). Raises ValueError for a script
+    that ``encode_stage.progressive_plan`` refuses, for planes of another
+    shape, dtype or device, and for a size whose MCU padding is not the
+    planes'. ``progressive_histograms.launches`` counts the launches,
+    ``launches_by_walk`` the same by component (``"y"``, ``"cb"``,
+    ``"cr"``) and ``"eobrun"``."""
+    planes = [p for p in (y, cb, cr) if p is not None]
+    for name, p in zip(COMPONENT_NAMES, planes):
+        if not torch.is_tensor(p) or p.dtype != torch.int16:
+            raise TypeError(f"{name} must be an int16 tensor")
+        if p.device != y.device:
+            raise ValueError(f"{name} on {p.device}, luma on {y.device}")
+    sampling = encode_stage.progressive_sampling(y, cb, cr)
+    n_rows, plans = encode_stage.progressive_plan(script, len(planes))
+    b, hb, wb = y.shape[:3]
+    size = (8 * hb, 8 * wb) if size is None else (int(size[0]), int(size[1]))
+    hmax, vmax = sampling[0]
+    for name, p, (h, v) in zip(COMPONENT_NAMES, planes, sampling):
+        want = (-(-size[0] // (8 * vmax)) * v, -(-size[1] // (8 * hmax)) * h)
+        if tuple(p.shape[1:3]) != want:
+            raise ValueError(f"{name} {tuple(p.shape[1:3])} blocks are not the MCU padding "
+                             f"{want} of a {size[0]} x {size[1]} image")
+    device = y.device
+    if not _on_cuda(device, "K7"):
+        return encode_stage.progressive_histograms_plain(y, cb, cr, script, size=size)
+    if not all(p.is_contiguous() for p in planes):
+        raise ValueError("planes must be contiguous")
+
+    out = torch.zeros((b, n_rows, 256), dtype=torch.int32, device=device)
+    if b * hb * wb * n_rows == 0:
+        return out
+    summaries, segs = [], []
+    for c, (name, p, (h, v), plan) in enumerate(zip(COMPONENT_NAMES, planes, sampling, plans)):
+        p = _aligned(p)
+        rows, cols = encode_stage.progressive_grid(size, sampling, c)
+        n_seg = p.shape[1] * -(-p.shape[2] // EOB_SEGMENT)
+        summary = torch.empty((b, len(plan.ac), n_seg), dtype=torch.int32, device=device)
+        ac = (ctypes.c_int32 * (5 * len(plan.ac) or 1))(*(x for scan in plan.ac for x in scan))
+        dc_al, dc_row = plan.dc if plan.dc is not None else (0, -1)
+        _launch("K7", progressive_histograms, "jpx_progressive_histograms", device,
+                p.data_ptr(), b, p.shape[1], p.shape[2], rows, cols, h, v, dc_al, dc_row,
+                len(plan.ac), ctypes.addressof(ac), n_rows, summary.data_ptr(), out.data_ptr(),
+                walk=name)
+        summaries.append(summary)
+        segs.append(n_seg)
+    n = len(planes)
+    ptrs = (ctypes.c_void_p * n)(*(s.data_ptr() for s in summaries))
+    n_seg = (ctypes.c_int64 * n)(*segs)
+    n_ac = (ctypes.c_int32 * n)(*(len(plan.ac) for plan in plans))
+    ac_rows = (ctypes.c_int32 * (encode_stage.MAX_AC_SCANS * n))()
+    for c, plan in enumerate(plans):
+        for a, scan in enumerate(plan.ac):
+            ac_rows[c * encode_stage.MAX_AC_SCANS + a] = scan[4]
+    with span("progressive_step.eobrun"):
+        _launch("K7", progressive_histograms, "jpx_progressive_eobrun", device,
+                n, ctypes.addressof(ptrs), ctypes.addressof(n_seg), ctypes.addressof(n_ac),
+                ctypes.addressof(ac_rows), b, n_rows, out.data_ptr(), walk="eobrun")
+    return out
+
+
+progressive_histograms.launches = 0
+progressive_histograms.launches_by_walk = {}

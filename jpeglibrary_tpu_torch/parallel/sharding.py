@@ -35,6 +35,10 @@ of one-component frames at 8 or 12 bits (a CT series): K1's plane store
 (``kernels.dequantize_idct_plane``, the uint16 samples), K2 on those
 planes where they lie and K5 on the requantised planes, 1 launch each.
 The sharded forms run the same kernels on each rank's device.
+``progressive_step`` is the count pass of a lossless progressive transcode:
+K7 (``kernels.progressive_histograms``), the symbol histograms of each
+image under a progressive scan script, 3 launches a batch and 1 for the
+EOB runs' stitch.
 """
 
 from __future__ import annotations
@@ -292,6 +296,37 @@ def _gray_step(coeffs, qt, precision: int, k1=kernels.dequantize_idct_plane,
             prev = chain_prev(requant[:, -1, -1, 0].to(torch.int32))
         hists = torch.stack(k5(requant, prev_dc=prev))
     return samples, requant, hists
+
+
+def progressive_step(y_coeffs, cb_coeffs, cr_coeffs, *, script=None, size=None, device):
+    """The count pass of a lossless progressive transcode (``jpegtran
+    -optimize -progressive``) over a batch of images, on ``device``: the
+    Huffman symbol histograms of each image under a progressive scan
+    script, from which each file's optimised tables are built. No
+    transform: coefficients in, histograms out.
+
+    ``y_coeffs`` int16 [B, Hb, Wb, 64] and ``cb_coeffs``, ``cr_coeffs``
+    [B, Hb / vs, Wb / hs, 64] zig-zag (4:2:0 at hs = vs = 2), or both None
+    for one-component frames; the MCU-padded planes of images of ``size``
+    = (height, width), their full size when None. ``script`` is
+    ``(components, Ss, Se, Ah, Al)`` entries, libjpeg's
+    ``jpeg_simple_progression`` for YCbCr (``SCRIPT_3``) when None (one
+    component: ``SCRIPT_1``). Inputs not on ``device`` are copied there.
+    Returns [B, R, 256] int32 on ``device``: one row per (scan, component)
+    that codes Huffman symbols, in script order (11 rows for
+    ``SCRIPT_3``). On the card: K7 (``kernels.progressive_histograms``),
+    one launch a component and one for the EOB runs' stitch.
+
+    Spans: ``progressive_step`` around the whole call, and
+    ``progressive_step.eobrun`` around the stitch."""
+    from ..host.models.progressive_encoder import SCRIPT_1, SCRIPT_3
+
+    if script is None:
+        script = SCRIPT_1 if cb_coeffs is None and cr_coeffs is None else SCRIPT_3
+    with span("progressive_step"):
+        planes = [None if c is None else _on_device(c, torch.int16, device).contiguous()
+                  for c in (y_coeffs, cb_coeffs, cr_coeffs)]
+        return kernels.progressive_histograms(*planes, script, size=size)
 
 
 def _prev_across(mesh, dim: str):

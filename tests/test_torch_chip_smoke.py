@@ -212,7 +212,8 @@ def test_k1_probe_launches_are_the_cells_steps(k1_probe):
     """tools/k1_probe.py times K1's launches of each benchmark cell's step:
     the luma and twice the chroma of a 4:2:0 batch (half size, planes padded
     to whole 16 x 16 MCUs) or of a 4:2:2 batch (half width, whole 16 x 8
-    MCUs), the plane store on a one-component series."""
+    MCUs), the plane store on a one-component series; a cell of the
+    progressive transcode's count pass runs no K1."""
     import json
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -221,6 +222,8 @@ def test_k1_probe_launches_are_the_cells_steps(k1_probe):
     for cell in bench["workloads"]:
         config = configs[cell["config"]]
         traffic = json.loads((ROOT / "jpegbench" / "traffic" / f"{cell['traffic']}.json").read_text())
+        if traffic["entry"] == "transcode_progressive":
+            continue
         b = traffic["batch"]
         if config.get("components") == 1:
             want.add((cell["name"], 1, "plane", (b, config["height"] // 8, config["width"] // 8)))
@@ -471,6 +474,61 @@ def test_gray_step_phase_records_what_it_measures(smoke, monkeypatch):
     assert [r["max_abs_err"] for r in records] == [2, 1, 3]
     assert ("gray_step", "samples", 1) in failed and ("gray_step histograms", 3) in failed
 
+
+# The progressive step's rehearsal sizes: a flat luma of 64 x 514 = 32,896
+# blocks an image, past 0x7FFF, and a ragged 29 x 37 image.
+PROG_SMALL = {"PROG_CELL": (2, 512, 4112), "PROG_RAGGED": (2, 29, 37), "PROG_CHUNK": 1}
+
+
+def _rehearse_progressive_step(smoke, monkeypatch, failed):
+    monkeypatch.setattr(smoke, "check", lambda ok, what: ok or failed.append(what))
+    for name, value in PROG_SMALL.items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "FLUSH_BYTES", 64)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    stub = lambda *fns, **kw: [0.5 for fn in fns if fn() is not None]
+    monkeypatch.setattr(smoke, "device_ms", stub)
+    return smoke.phase_progressive_step(torch.device("cpu"))
+
+
+def test_progressive_step_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """The progressive-step phase runs end to end on the CPU at small
+    shapes with the timers stubbed: every check holds but the launch
+    counts, which only the card meets (the CPU takes the plain version);
+    the flat luma's runs pass 0x7FFF blocks, and K7's record reads the
+    bound of one read of the blocks and the histograms' write."""
+    failed = []
+    rec = _rehearse_progressive_step(smoke, monkeypatch, failed)
+    assert failed == [("progressive_step launches", 0, {})]
+    assert rec["name"] == "progressive_histograms[progressive_step]"
+    assert rec["ms"] == rec["plain_ms"] == rec["library_ms"] == 0.5
+    assert rec["launches"] == 0 and rec["max_abs_err"] == 0
+    assert (ROOT / rec["source"]).is_file() and rec["bound_by"] == "bytes"
+    b, height, width = PROG_SMALL["PROG_CELL"]
+    blocks = b * (height // 8) * (width // 8) * 3 // 2
+    assert rec["bound_ms"] == pytest.approx((blocks * 128 + b * 11 * 256 * 4) / 3.35e9)
+
+
+def test_progressive_step_phase_records_what_it_measures(smoke, monkeypatch):
+    """A K7 whose histograms are off in 3 bins of each image fails the
+    phase's comparisons, and its record carries the bins it measured."""
+    from jpeglibrary_tpu_torch.ops import kernels
+
+    real = kernels.progressive_histograms
+
+    def skewed(*args, **kwargs):
+        out = real(*args, **kwargs).clone()
+        out[:, 4, :3] += 1
+        return out
+
+    skewed.launches, skewed.launches_by_walk = 0, {}
+    monkeypatch.setattr(kernels, "progressive_histograms", skewed)
+    failed = []
+    rec = _rehearse_progressive_step(smoke, monkeypatch, failed)
+    b, rb = PROG_SMALL["PROG_CELL"][0], PROG_SMALL["PROG_RAGGED"][0]
+    assert rec["max_abs_err"] == 3 * max(b, rb)
+    assert ("K7 differs", "cell batch, flat luma", 3 * b) in failed
+    assert ("K7 differs", "ragged 2 x 37 x 29", 3 * rb) in failed
 
 PINNED = "Memcpy HtoD (Pinned -> Device)"
 PAGEABLE = "Memcpy HtoD (Pageable -> Device)"

@@ -264,8 +264,8 @@ def test_folded_fdct_matrix_bit_equal():
 
 
 # Copied unchanged but for their imports, the upstream project's path in
-# comments and two comments' wording; the other copies have the cuts the
-# host package notes.
+# comments, two comments' wording and the device edits below; the other
+# copies have the cuts the host package notes.
 VERBATIM = [
     "io/bitreader.py", "io/reader.py", "io/writer.py", "models/arithmetic.py",
     "models/arithmetic_lossless.py", "models/geometry.py", "models/hierarchical.py",
@@ -287,10 +287,60 @@ SUBSTITUTIONS = [
 ]
 
 
+# The device count of the progressive transcode (``device=``, K7 through
+# ``host/models/progressive_count.py``), each edit once in its copy.
+DEVICE_EDITS = {
+    "models/progressive_encoder.py": [
+        ("    differential: bool = False,\n) -> bytes:",
+         "    differential: bool = False,\n    device=None,\n) -> bytes:"),
+        ("    the framework's progressive scanners decode them in parallel.\n    \"\"\"",
+         "    the framework's progressive scanners decode them in parallel.\n\n"
+         "    ``device`` (a ``torch.device``; Huffman coding, no restart intervals)\n"
+         "    runs pass 1, the symbol count, on that device: the per-image rows of\n"
+         "    ``parallel.sharding.progressive_step`` (K7 on the card), summed per\n"
+         "    table class; the tables and the bytes are the host count's.\n    \"\"\""),
+        ("        count_jobs = list(script)\n",
+         "        count_jobs = list(script) if device is None else []\n"),
+        ("                ac_freqs[tid] += local_ac[tid]\n",
+         "                ac_freqs[tid] += local_ac[tid]\n"
+         "        if device is not None:\n"
+         "            if restart_interval > 0:\n"
+         "                raise ValueError(\"the device count takes no restart intervals\")\n"
+         "            from .progressive_count import progressive_frequencies\n\n"
+         "            progressive_frequencies(coeffs, (h, w), sampling, script, table_ids,\n"
+         "                                    dc_freqs, ac_freqs, device=device)\n"),
+    ],
+    "models/transcode.py": [
+        ("    grayscale: bool = False,\n) -> bytes:\n    \"\"\"Re-encode",
+         "    grayscale: bool = False,\n    device=None,\n) -> bytes:\n    \"\"\"Re-encode"),
+        ("    (RGB / CMYK / YCCK), so dropping it would alter decoded colors.\n    \"\"\"\n",
+         "    (RGB / CMYK / YCCK), so dropping it would alter decoded colors.\n\n"
+         "    ``device`` (a ``torch.device``, mode \"progressive\" alone) counts the\n"
+         "    progressive script's symbols there (``encode_progressive``'s\n"
+         "    ``device``); the output is the same bytes.\n    \"\"\"\n"
+         "    if device is not None and mode != \"progressive\":\n"
+         "        raise ValueError(f\"mode {mode!r} has no device count; device= is for "
+         "'progressive'\")\n"),
+        ("        grayscale=grayscale,\n    )\n    if grayscale:",
+         "        grayscale=grayscale, device=device,\n    )\n    if grayscale:"),
+        ("    grayscale: bool = False,\n) -> bytes:\n    dec = JpegDecoder()",
+         "    grayscale: bool = False,\n    device=None,\n) -> bytes:\n    dec = JpegDecoder()"),
+        ("        precision=frame.sample_precision,\n    )\n\n\ndef _emit_dct",
+         "        precision=frame.sample_precision,\n        device=device,\n    )\n\n\ndef _emit_dct"),
+        ("restart_interval, size, precision):", "restart_interval, size, precision, device=None):"),
+        ("            precision=precision,\n        )\n\n    from .encoder",
+         "            precision=precision,\n            device=device,\n        )\n\n    from .encoder"),
+    ],
+}
+
+
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_copy_matches_reference_source(rel):
     want = (REF / rel).read_text()
     for a, b in SUBSTITUTIONS:
+        want = want.replace(a, b)
+    for a, b in DEVICE_EDITS.get(rel, []):
+        assert want.count(a) == 1, (rel, a)
         want = want.replace(a, b)
     assert (HOST / rel).read_text() == want
 
